@@ -1,0 +1,533 @@
+"""Fused stage-1+2: encode regions on host threads WHILE the device infers.
+
+The reference (and our staged path) fully materializes stage 1's HDF5
+images before stage 2 starts (CallVariant.py:84-104) — on a TPU that means
+the chip idles for the entire host encode (~98% of hot-path wall clock at
+1 Mbp scale). Here the stages stream:
+
+  producer threads ──(bounded queue)──> device batcher ──> prediction store
+  (native BAM fetch + region encode;     (int8 transfer,    (HDF5 artifact,
+   the C++ encoder releases the GIL,      bf16 forward       written behind
+   so threads give real host              enqueued on one    the device)
+   parallelism with zero pickling)        CUDA stream)
+
+The queue is bounded, so whole-genome runs hold only ~2×threads regions of
+images in RAM instead of every image (replaces the eager
+load_all_summaries for the fused path). Stage boundaries survive: the
+prediction HDF5 is still written (stage 3 stays independently re-runnable)
+and image HDF5s can be kept with --keep_image_artifacts — as artifacts,
+not barriers. Without h5py the prediction artifact is skipped (loudly):
+the VCFs do not depend on it, since the collector gets the predictions
+directly.
+"""
+import os
+import queue
+import sys
+import threading
+import time
+from datetime import datetime
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from pepper_tpu_torch.options import PipelineConfig
+from pepper_tpu_torch.pipelines.datastore import (ImageStore, PredictionStore,
+                                                  h5py_available, stack_images)
+from pepper_tpu_torch.utils import streamstats
+
+
+def _log(msg: str) -> None:
+    sys.stderr.write("[" + datetime.now().strftime("%m-%d-%Y %H:%M:%S")
+                     + "] INFO: " + msg + "\n")
+    sys.stderr.flush()
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device for `device`; "cuda" with no CUDA device raises
+    (the port never carries on on the CPU when the card was asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA device "
+                           f"is available (pass device='cpu' / --device cpu "
+                           f"to run on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+class _PendingBatch:
+    """One in-flight batch: its own pinned output buffer, filled by an
+    asynchronous D2H copy that `done` marks complete. np.asarray() waits
+    for the event (on the flusher thread) and returns the probabilities."""
+
+    def __init__(self, host_out: torch.Tensor, done, host_in: torch.Tensor):
+        self._host_out = host_out
+        self._done = done
+        self._host_in = host_in   # pinned input: held until the batch is done
+
+    def __array__(self, dtype=None, copy=None):
+        self._done.synchronize()
+        out = self._host_out.numpy()
+        return out if dtype is None else out.astype(dtype)
+
+
+class DeviceRunner:
+    """Batched classifier forward with fixed-shape batches on one device.
+
+    The tail is padded to the fixed batch. Images cross to the card as int8
+    from pinned memory and are cast on the device; bf16 on CUDA, f32 on
+    the CPU or with PEPPER_TPU_PRECISION=f32. All device work is issued on
+    one stream held by the runner, and each batch's probabilities come back
+    by an asynchronous copy completed by a CUDA event, so `submit` never
+    waits for the device. Shared by the staged (runtime/inference.py) and
+    streaming paths."""
+
+    def __init__(self, params, batch_size: int = 2048, device="cuda"):
+        from pepper_tpu_torch.models.checkpoint import params_from_jax
+
+        self.device = resolve_device(device)
+        floor = min(2048, int(os.environ.get("PEPPER_TPU_MIN_DEVICE_BATCH",
+                                             "2048")))
+        self.batch = max(batch_size, floor)
+        use_bf16 = (os.environ.get("PEPPER_TPU_PRECISION", "bf16") != "f32"
+                    and self.device.type == "cuda")
+        self.dtype = torch.bfloat16 if use_bf16 else torch.float32
+        self._params = params_from_jax(params, self.device, self.dtype)
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            # the parameter uploads were issued on the current stream
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def forward(self, images8: torch.Tensor) -> torch.Tensor:
+        """int8 images [B, 33, F] on the runner's device -> f32 probs."""
+        from pepper_tpu_torch.models.variant_model import variant_forward
+        with torch.inference_mode():
+            return variant_forward(self._params,
+                                   images8.to(self.dtype)).float()
+
+    def submit(self, images8: np.ndarray):
+        """Enqueue one batch; returns an array-like (np.asarray) whose first
+        len(images8) rows are the probabilities."""
+        n = len(images8)
+        shape = (self.batch,) + images8.shape[1:]
+        if self.device.type == "cpu":
+            padded = np.zeros(shape, np.int8)
+            padded[:n] = images8
+            return self.forward(torch.from_numpy(padded)).numpy()
+        host_in = torch.empty(shape, dtype=torch.int8, pin_memory=True)
+        staged = host_in.numpy()
+        staged[:n] = images8
+        staged[n:] = 0
+        host_out = torch.empty((self.batch, 3), dtype=torch.float32,
+                               pin_memory=True)
+        with torch.cuda.stream(self._stream):
+            probs = self.forward(host_in.to(self.device, non_blocking=True))
+            host_out.copy_(probs, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self._stream)
+        return _PendingBatch(host_out, done, host_in)
+
+
+_runner_cache: dict = {}
+
+
+def get_device_runner(model_path: str, batch_size: int,
+                      device="cuda") -> DeviceRunner:
+    """Process-wide DeviceRunner cache: the checkpoint load + device
+    placement of params is identical for every stage-2 invocation of the
+    same model on the same device."""
+    key = (os.path.abspath(model_path), max(batch_size, 2048),
+           os.environ.get("PEPPER_TPU_PRECISION", "bf16"),
+           str(resolve_device(device)))
+    if key not in _runner_cache:
+        from pepper_tpu_torch.runtime.inference import _load_model_params
+        _runner_cache[key] = DeviceRunner(_load_model_params(model_path),
+                                          batch_size, device)
+    return _runner_cache[key]
+
+
+class _MetaBuffer:
+    """Accumulates per-candidate metadata + int8 images until a device
+    batch is full."""
+
+    def __init__(self):
+        self.contigs: List[str] = []
+        self.positions: List[np.ndarray] = []
+        self.depths: List[np.ndarray] = []
+        self.candidates: List[List[str]] = []
+        self.freqs: List[np.ndarray] = []
+        self.images: List[np.ndarray] = []
+        self.runs: List[List[int]] = []   # FIFO of [interval_idx, n_rows]
+        self.rows = 0
+
+    def add(self, contig, positions, depths, candidates, freqs, images8,
+            interval_idx: int = -1):
+        self.contigs.extend([contig] * len(positions))
+        self.positions.append(positions)
+        self.depths.append(depths)
+        self.candidates.extend(candidates)
+        self.freqs.append(freqs)
+        self.images.append(images8)
+        self.runs.append([interval_idx, len(positions)])
+        self.rows += len(positions)
+
+    def take(self, n: int):
+        """Split off the first n rows as flat arrays (+ their interval-run
+        accounting, for the ordered stage-3 watermark).
+
+        O(n) per take, not O(buffer): whole chunks are moved into the batch
+        and only the boundary chunk is split; the remainder keeps its chunk
+        list without being re-concatenated (the old implementation
+        flattened the entire buffer on every take)."""
+        pos_out, dep_out, frq_out, img_out = [], [], [], []
+        got = 0
+        while got < n:
+            k = len(self.positions[0])
+            if got + k <= n:
+                pos_out.append(self.positions.pop(0))
+                dep_out.append(self.depths.pop(0))
+                frq_out.append(self.freqs.pop(0))
+                img_out.append(self.images.pop(0))
+                got += k
+            else:
+                need = n - got
+                pos_out.append(self.positions[0][:need])
+                dep_out.append(self.depths[0][:need])
+                frq_out.append(self.freqs[0][:need])
+                img_out.append(self.images[0][:need])
+                self.positions[0] = self.positions[0][need:]
+                self.depths[0] = self.depths[0][need:]
+                self.freqs[0] = self.freqs[0][need:]
+                self.images[0] = self.images[0][need:]
+                got = n
+        batch_runs, rest_runs, left = [], [], n
+        for idx, k in self.runs:
+            if left >= k:
+                batch_runs.append((idx, k))
+                left -= k
+            elif left > 0:
+                batch_runs.append((idx, left))
+                rest_runs.append([idx, k - left])
+                left = 0
+            else:
+                rest_runs.append([idx, k])
+        out = (self.contigs[:n], np.concatenate(pos_out),
+               np.concatenate(dep_out), self.candidates[:n],
+               np.concatenate(frq_out), np.concatenate(img_out), batch_runs)
+        rest = _MetaBuffer()
+        if n < self.rows:
+            rest.contigs = self.contigs[n:]
+            rest.positions = self.positions
+            rest.depths = self.depths
+            rest.candidates = self.candidates[n:]
+            rest.freqs = self.freqs
+            rest.images = self.images
+            rest.runs = rest_runs
+            rest.rows = self.rows - n
+        return out, rest
+
+
+def _batch_fields(result):
+    """(contig, positions, depths, per-row candidate lists, freqs, images8)
+    from either a CandidateBatch or a list of CandidateImage."""
+    from pepper_tpu_torch.encode.region_encoder import CandidateBatch
+    images8 = stack_images(result).astype(np.int8, copy=False)
+    if isinstance(result, CandidateBatch):
+        freqs = np.asarray(result.candidate_frequency).reshape(-1)
+        return (result.contig, np.asarray(result.positions),
+                np.asarray(result.depths),
+                [[c] for c in result.candidates], freqs, images8)
+    return (result[0].contig,
+            np.array([c.position for c in result], np.int64),
+            np.array([c.depth for c in result], np.int32),
+            [list(c.candidates) for c in result],
+            np.array([int(np.atleast_1d(c.candidate_frequency)[0])
+                      for c in result], np.int32),
+            images8)
+
+
+def stream_inference(config: PipelineConfig, intervals,
+                     prediction_path: str,
+                     image_store_path: Optional[str] = None,
+                     candidate_collector=None,
+                     resume_journal: Optional[str] = None) -> int:
+    """Encode `intervals` and run model inference concurrently; writes
+    prediction batches to `prediction_path`. Returns candidate count.
+
+    candidate_collector: optional StreamingCandidateCollector — each
+    flushed prediction batch is also pushed there, so stage 3's gates run
+    behind the device instead of after the whole stream (the last stage
+    barrier removed).
+
+    resume_journal: optional path to the per-region resume journal
+    (runtime/resume.py). Every flushed batch + per-interval row totals
+    are appended; when the file already holds a compatible journal (same
+    intervals + model), completed intervals are REPLAYED from it instead
+    of re-encoded — a killed run resumes with byte-identical outputs.
+    The caller deletes the file after the downstream consumers finish.
+    (The optional image artifact does not cover replayed intervals.)"""
+    from pepper_tpu_torch.io.bam_reader import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.pipelines.make_images import create_region_summary
+
+    journal = None
+    replayed: list = []
+    skip: dict = {}
+    if resume_journal is not None:
+        from pepper_tpu_torch.runtime.resume import (ResumeJournal, compact_journal,
+                                               completed_intervals,
+                                               load_journal, replay_slices)
+        inputs = (config.bam, config.fasta)
+        loaded = load_journal(resume_journal, intervals, config.model_path,
+                              inputs)
+        if loaded is not None:
+            totals, batches = loaded
+            skip = completed_intervals(totals, batches)
+            replayed = list(replay_slices(batches, skip))
+            # drop the incomplete intervals' stale partial rows BEFORE any
+            # new appends: old + new partials for one interval would
+            # double-count toward its total on the next resume
+            compact_journal(resume_journal, intervals, config.model_path,
+                            inputs, skip,
+                            [("batch",) + tuple(r) for r in replayed])
+            if skip:
+                _log(f"RESUME: {len(skip)}/{len(intervals)} INTERVALS "
+                     f"REPLAYED FROM JOURNAL")
+        elif os.path.isfile(resume_journal):
+            os.remove(resume_journal)   # stale/incompatible journal
+        journal = ResumeJournal(resume_journal, intervals,
+                                config.model_path, inputs)
+
+    stats = streamstats.reset()   # per-component accounting for this run
+    # big fixed batches: fewer launches/transfers/syncs per candidate
+    # (floor overridable for tests that need several flushes on tiny data).
+    # 16k on CUDA; on the CPU the f32 forward's workspace scales with the
+    # batch (xp alone is 0.5 GB per direction at 4k) — keep 4k there.
+    device = resolve_device(config.device)
+    default_floor = "4096" if device.type == "cpu" else "16384"
+    batch_floor = int(os.environ.get("PEPPER_TPU_MIN_DEVICE_BATCH",
+                                     default_floor))
+    runner = get_device_runner(config.model_path,
+                               max(config.batch_size, batch_floor), device)
+    n_threads = max(1, config.threads)
+    work: "queue.Queue" = queue.Queue()
+    for item in enumerate(intervals):
+        if item[0] not in skip:
+            work.put(item)
+    results: "queue.Queue" = queue.Queue(maxsize=2 * n_threads)
+    errors: List[BaseException] = []
+    stop = threading.Event()   # set on any failure: unblocks every thread
+
+    def _put_result(item) -> None:
+        while not stop.is_set():
+            try:
+                results.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def producer():
+        # share-nothing per thread: own BAM/FASTA handles (the native
+        # encode releases the GIL, so threads run the C++ walk in parallel)
+        try:
+            with BamReader(config.bam) as bam, \
+                    FastaReader(config.fasta) as fasta:
+                while not stop.is_set():
+                    try:
+                        idx, (chr_name, start, end) = work.get_nowait()
+                    except queue.Empty:
+                        return
+                    t0 = time.thread_time()
+                    cands = create_region_summary(config, bam, fasta,
+                                                  chr_name, start, end)
+                    t1 = time.thread_time()
+                    fields = _batch_fields(cands) if cands else None
+                    t2 = time.thread_time()
+                    stats.add("encode", t1 - t0)
+                    stats.add("batch_fields", t2 - t1)
+                    # empty intervals are reported too: the ordered
+                    # stage-3 watermark accounts for every interval
+                    _put_result((idx, fields))
+        except BaseException as exc:  # fail loudly, never silently drop
+            errors.append(exc)
+            raise
+        finally:
+            _put_result(None)  # one sentinel per producer
+
+    threads = [threading.Thread(target=producer, daemon=True)
+               for _ in range(n_threads)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+
+    image_store = ImageStore(image_store_path, "w") if image_store_path \
+        else None
+    buf = _MetaBuffer()
+    done_sentinels = 0
+    total = 0
+    store = None
+    if h5py_available():
+        store = PredictionStore(prediction_path, "w")
+    else:
+        _log("WARNING: h5py IS NOT INSTALLED — THE STREAMED RUN SKIPS THE "
+             f"PREDICTION ARTIFACT {prediction_path} (THE VCFS DO NOT "
+             "DEPEND ON IT)")
+    batch_no = 0
+
+    crash_after = int(os.environ.get("PEPPER_TPU_TEST_CRASH_AFTER_FLUSH",
+                                     "0"))
+
+    def flush(meta, probs, journal_batch: bool = True):
+        nonlocal batch_no
+        contigs, positions, depths, cand_lists, freqs, _, runs = meta
+        n = len(contigs)
+        with stats.timed("d2h_wait"):
+            probs_np = np.asarray(probs)[:n].astype(np.float64)
+        if store is not None:
+            with stats.timed_cpu("store_write"):
+                store.write_prediction(batch_no, contigs, positions, depths,
+                                       cand_lists, freqs, probs_np)
+        if candidate_collector is not None:
+            # freqs pass as a flat array; the gates materialize per-row
+            # lists only on the (rare) scalar path
+            with stats.timed("collector_put"):
+                candidate_collector.add(
+                    contigs, positions, depths, cand_lists,
+                    np.ravel(np.asarray(freqs)), probs_np, runs)
+        batch_no += 1
+        if journal is not None and journal_batch:
+            with stats.timed_cpu("journal"):
+                journal.append(
+                    ("batch", list(contigs), np.asarray(positions),
+                     np.asarray(depths), list(cand_lists),
+                     np.asarray(freqs), probs_np, list(runs)))
+            if crash_after and batch_no >= crash_after:
+                os._exit(9)   # test hook: simulate kill -9 mid-stream
+
+    # a dedicated flusher thread owns the device->host sync: the main
+    # thread NEVER waits on a result (on high-latency links one D2H sync
+    # can stall the whole encode pipeline), yet the gates + ordered VCF
+    # emission keep pace with the stream instead of piling into the tail.
+    # The bounded queue caps in-flight batches (host+device memory).
+    flush_q: "queue.Queue" = queue.Queue(maxsize=6)
+
+    def flusher():
+        try:
+            while True:
+                item = flush_q.get()
+                if item is None:
+                    return
+                flush(*item)
+        except BaseException as exc:
+            errors.append(exc)
+            raise
+
+    flush_thread = threading.Thread(target=flusher, daemon=True)
+
+    # Resume replay — BEFORE the flusher starts (flush() and the store are
+    # single-threaded until then): completed intervals' predictions feed
+    # stage 3 and the fresh prediction store without touching the encoder
+    # or the device. Original flush order is preserved, so the final VCFs
+    # are byte-identical to an uninterrupted run.
+    if skip and candidate_collector is not None:
+        for idx, n_rows in skip.items():
+            candidate_collector.note_interval(idx, n_rows)
+    for rec in replayed:
+        (contigs_r, positions_r, depths_r, cands_r, freqs_r, probs_r,
+         runs_r) = rec
+        flush((contigs_r, positions_r, depths_r, cands_r, freqs_r, None,
+               runs_r), probs_r, journal_batch=False)
+        total += len(contigs_r)
+
+    flush_thread.start()
+
+    def _put_flush(item) -> None:
+        # never block forever on a dead flusher: surface its error instead
+        while True:
+            if errors:
+                raise RuntimeError(
+                    f"streaming shard failed: {errors[0]}") from errors[0]
+            try:
+                flush_q.put(item, timeout=1.0)
+                return
+            except queue.Full:
+                continue
+
+    try:
+        while done_sentinels < n_threads:
+            item = results.get()
+            if item is None:
+                done_sentinels += 1
+                continue
+            interval_idx, fields = item
+            if candidate_collector is not None:
+                candidate_collector.note_interval(
+                    interval_idx, len(fields[1]) if fields else 0)
+            if journal is not None:
+                journal.append(("total", interval_idx,
+                                len(fields[1]) if fields else 0))
+            if fields is None:
+                continue
+            contig, positions, depths, cand_lists, freqs, images8 = fields
+            if image_store is not None and len(positions):
+                # `total` is unique and monotonic on this thread (batch_no
+                # belongs to the flusher thread — do not read it here)
+                name = (f"{contig}_{int(positions[0])}"
+                        f"_{int(positions[-1])}_{total}")
+                from pepper_tpu_torch.encode.region_encoder import CandidateBatch
+                # the kept-image artifact stores one allele per row;
+                # lossless because the encoder emits exactly one allele per
+                # candidate row (region_encoder.py:73,391) — fail loudly if
+                # that changes
+                assert all(len(c) == 1 for c in cand_lists), \
+                    "streamed image artifact assumes one allele per row"
+                image_store.write_summary(name, CandidateBatch(
+                    contig, positions, depths,
+                    [c[0] for c in cand_lists], freqs, images8,
+                    np.zeros(len(positions), np.int32),
+                    np.zeros(len(positions), np.int32)))
+            buf.add(contig, positions, depths, cand_lists, freqs, images8,
+                    interval_idx)
+            total += len(positions)
+            while buf.rows >= runner.batch:
+                with stats.timed_cpu("batch_submit"):
+                    meta, buf = buf.take(runner.batch)
+                    out = runner.submit(meta[5])
+                _put_flush((meta, out))
+        for t in threads:
+            t.join()
+        if buf.rows and not errors:
+            with stats.timed_cpu("batch_submit"):
+                meta, _ = buf.take(buf.rows)
+                out = runner.submit(meta[5])
+            _put_flush((meta, out))
+    finally:
+        stop.set()   # unblock any producer still waiting on the queues
+        # ALWAYS stop + join the flusher before returning OR raising: an
+        # abandoned flusher would keep feeding the collector and native
+        # VCF sink while the caller's error path aborts them (freeing the
+        # C++ FILE handles under an in-flight write — use-after-free).
+        # Checked sentinel delivery: a dead flusher (its error already in
+        # `errors`) may leave flush_q full — never block forever on it.
+        while flush_thread.is_alive():
+            try:
+                flush_q.put(None, timeout=0.2)
+                break
+            except queue.Full:
+                continue
+        flush_thread.join()
+        if journal is not None:
+            journal.close()  # caller deletes the file after stage 3 ends
+    if errors:
+        raise RuntimeError(f"streaming shard failed: {errors[0]}") \
+            from errors[0]
+    if store is not None:
+        store.close()
+    if image_store is not None:
+        image_store.close()
+    _log(f"STREAMED ENCODE+INFERENCE: {total} CANDIDATES "
+         f"[{time.time() - t0:.1f}s]")
+    _log("STREAM BREAKDOWN (core-seconds): " + stats.summary())
+    return total

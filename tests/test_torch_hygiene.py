@@ -1,0 +1,147 @@
+"""Boundaries of the PyTorch port: it imports neither jax nor the JAX
+package, it asks for the card and never carries on on the CPU when the card
+is missing, it ships no built library, and what it does not port yet
+raises instead of half-running."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "pepper_tpu_torch")
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import pepper_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    pepper_tpu_torch.__path__, 'pepper_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'pepper_tpu' or m.startswith('pepper_tpu.')]\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 30 else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_modules(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("scope", ["pepper_tpu_torch", "chip_smoke.py"])
+def test_no_import_statement_names_jax_or_the_jax_package(scope):
+    paths = [os.path.join(ROOT, scope)] if scope.endswith(".py") else [
+        os.path.join(d, f) for d, _, files in os.walk(PKG) for f in files
+        if f.endswith(".py")]
+    assert paths
+    for path in paths:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "pepper_tpu", "tests"), \
+                (path, mod)
+
+
+def test_no_built_library_in_the_package():
+    built = [os.path.join(d, f) for d, _, files in os.walk(PKG)
+             for f in files if f.endswith((".so", ".o", ".a"))]
+    assert built == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_device_runner_on_cuda_without_a_card_raises(no_cuda):
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceRunner({}, 512, device="cuda")
+
+
+def test_call_variant_on_cuda_without_a_card_raises(no_cuda, tmp_path):
+    from pepper_tpu_torch.models.checkpoint import save_checkpoint
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.options import PipelineConfig
+    from pepper_tpu_torch.pipelines.call_variant import call_variant
+    from pepper_tpu_torch.presets import set_parameters
+    from pepper_tpu_torch.utils.synth import (random_genome, simulate_reads,
+                                              write_dataset)
+
+    genome = random_genome(3000, seed=9)
+    fasta, bam = write_dataset(str(tmp_path), genome,
+                               simulate_reads(genome, [], coverage=5, seed=9))
+    model = str(tmp_path / "model.npz")
+    save_checkpoint(model, init_variant_params(torch.Generator(), hidden=8))
+    out = str(tmp_path / "out") + "/"
+    config = set_parameters(PipelineConfig(
+        bam=bam, fasta=fasta, output_dir=out, model_path=model,
+        ont_r9_guppy5_sup=True))
+    assert config.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call_variant(config)
+    assert not os.path.exists(out) or not any(
+        f.endswith(".vcf.gz") for f in os.listdir(out))
+
+
+def test_cpu_runner_pads_to_a_fixed_batch_in_f32(tmp_path):
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    params = init_variant_params(torch.Generator().manual_seed(0), hidden=8)
+    tree = {g: {k: v.numpy() for k, v in leaves.items()}
+            for g, leaves in params.items()}
+    runner = DeviceRunner(tree, 16, device="cpu")
+    assert runner.dtype == torch.float32 and runner.batch == 2048
+    images = np.random.default_rng(0).integers(
+        -125, 126, (5, 33, 26)).astype(np.int8)
+    probs = np.asarray(runner.submit(images))
+    assert probs.shape == (runner.batch, 3)
+    np.testing.assert_allclose(probs[:5].sum(axis=1), 1.0, atol=1e-5)
+
+
+def test_multi_host_raises_not_implemented(monkeypatch):
+    from pepper_tpu_torch.parallel import multihost
+    with pytest.raises(NotImplementedError, match="M7"):
+        multihost.initialize(num_processes=2, process_id=0)
+    with pytest.raises(NotImplementedError, match="M7"):
+        multihost.initialize(coordinator_address="localhost:1234")
+    monkeypatch.setenv("PEPPER_TPU_NUM_HOSTS", "2")
+    with pytest.raises(NotImplementedError, match="M7"):
+        multihost.initialize()
+    monkeypatch.delenv("PEPPER_TPU_NUM_HOSTS")
+    multihost.initialize()
+    assert (multihost.host_count(), multihost.host_tag()) == (1, "")
+
+
+@pytest.mark.parametrize("argv", [
+    ["merge_variants", "-vp", "a.vcf", "-o", "out"],
+    ["call_variant", "-b", "a.bam", "-f", "a.fa", "-o", "out",
+     "--use_hp_info", "--device", "cpu"],
+])
+def test_cli_parts_not_ported_raise(argv):
+    from pepper_tpu_torch.cli.pepper_variant_main import main
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        main(argv)
+
+
+def test_call_variant_with_hp_info_raises():
+    from pepper_tpu_torch.options import PipelineConfig
+    from pepper_tpu_torch.pipelines.call_variant import call_variant
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        call_variant(PipelineConfig(use_hp_info=True, device="cpu"))
