@@ -26,7 +26,22 @@ at once, into the git-ignored build/ directory, then:
   7. runs the streamed polish end to end on a synthetic ~100 kb draft on
      the card (bf16, then f32) and on the CPU (f32), checks that K2 was
      launched 38 times per device batch and that the consensus agrees;
-  8. prints one JSON line describing every ported kernel.
+  8. holds kernels K3 (residual-saving biLSTM forward) and K4 (BPTT
+     backward and dW_hh) against their plain versions at the trainer's
+     shapes (batch 512 and 64, encoder and decoder layers) and on a ragged
+     HP-window shape, K3 also in bf16, and through the autograd function
+     every gradient against autograd through the plain step loop; checks
+     that two backward calls give identical bits; times both beside their
+     bounds, the plain versions and nn.LSTM (cuDNN) forward and backward;
+  9. takes one full-width train step on the card and holds its loss, every
+     gradient and the updated parameters against the same step on the CPU;
+ 10. trains for ~20 steps at batch 64 on labeled images encoded in memory
+     from a synthetic dataset with a truth VCF, with evals and checkpoints,
+     checks that K3 and K4 were each launched twice per step and K1 by the
+     evals, that the loss fell, and that the checkpoint resumes with its
+     optimizer state; prints ms per step, the device time by kernel and
+     the peak memory;
+ 11. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -104,7 +119,10 @@ def device_breakdown(fn, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     per_kernel: dict = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels and copies only: an annotation's span on the device (the
+        # optimizer's step) covers kernels that are counted themselves
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us() / 1e3 / reps)
     return per_kernel
@@ -192,14 +210,16 @@ def phase_environment():
             errors.append(exc)
 
     threads = [threading.Thread(target=build, args=(fn,)) for fn in (
-        fused_lstm._kernel_lib, fused_gru._kernel_lib, bamio.available)]
+        fused_lstm._kernel_lib, fused_lstm._train_kernel_lib,
+        fused_gru._kernel_lib, bamio.available)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    ptxas = [f"{name}: {ln.strip()}" for name in ("fused_lstm", "fused_gru")
+    ptxas = [f"{name}: {ln.strip()}" for name in ("fused_lstm", "fused_lstm_train",
+                                                    "fused_gru")
              for ln in cuda_build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln]
     env = {"card": card(), "torch": torch.__version__,
@@ -756,6 +776,423 @@ def phase_polish_end_to_end(dev, work_dir, name):
     return launches
 
 
+# --------------------------------------------------------------- phase 8
+def k3_bound_ms(B: int, T: int, elem: int, peak_ops: float):
+    """(bound ms, bound_by): xp (both directions) and W_hh^T read once; out,
+    the f32 gates and the f32 cell states written once; 2*2*T*B*H*4H
+    operations."""
+    nbytes = ((2 * B * T * 4 * H + 2 * H * 4 * H + B * T * 2 * H) * elem
+              + (2 * B * T * 4 * H + 2 * B * T * H) * 4)
+    ops = 2 * 2 * T * B * H * 4 * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def k4_bound_ms(B: int, T: int, elem: int):
+    """(bound ms, bound_by): gout and out (h_prev) read once in the layer's
+    dtype; gates, cs and W_hh read once and dxp and dW_hh written once in
+    f32; two products (dgates @ W_hh and h_prev^T @ dgates) of
+    2*2*T*B*H*4H operations each, in f32."""
+    nbytes = (2 * B * T * 2 * H * elem
+              + (2 * 2 * B * T * 4 * H + 2 * B * T * H + 2 * 2 * 4 * H * H) * 4)
+    ops = 2 * 2 * 2 * T * B * H * 4 * H
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _rel_err(got, want) -> float:
+    """Max abs error relative to the reference's largest entry (at least
+    1): sums of B*T products taken in another order."""
+    return _max_err(got, want) / max(1.0, want.float().abs().max().item())
+
+
+def phase_train_kernels(dev):
+    from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.models.rnn import lstm as plain_lstm
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    rng = np.random.default_rng(71)
+    tree = numpy_variant_tree(72)
+    hp_tree = numpy_variant_tree(73, features=48, window=21)
+    f32, bf16 = torch.float32, torch.bfloat16
+    fwd_tol = {bf16: 2e-2, f32: 1e-4}
+    worst = {"k3": {bf16: 0.0, f32: 0.0}, "k4": 0.0, "k4_dwhh": 0.0,
+             "grads": 0.0}
+    timed = {}
+    cases = [("trainer", 512, 33, 26, tree), ("trainer", 64, 33, 26, tree),
+             ("hp_ragged", 37, 21, 48, hp_tree)]
+    for label, B, T, F, t in cases:
+        x8 = images(rng, B, T, F)
+        for dtype in (f32, bf16):
+            params = params_from_jax(t, dev, dtype)
+            x = torch.from_numpy(x8).to(dev, dtype)
+            for layer in ("encoder", "decoder"):
+                p = params[layer]
+                tag = (f"{label} B={B} T={T} {layer} (F={x.shape[-1]}) "
+                       f"{str(dtype)[6:]}")
+                xp_f, xp_b = fl.input_projections(p, x)
+                w_f, w_b = p["weight_hh_l0"], p["weight_hh_l0_reverse"]
+                got = fl.bilstm_train_forward_kernel(xp_f, xp_b, w_f.t(),
+                                                     w_b.t())
+                torch.cuda.synchronize()
+                want = fl.bilstm_train_forward_plain(xp_f, xp_b, w_f.t(),
+                                                     w_b.t())
+                check(all(bool(torch.isfinite(g.float()).all())
+                          for g in got), f"K3 non-finite output ({tag})")
+                errs = [_max_err(g, w) for g, w in zip(got, want)]
+                print(f"K3 {tag}: max_abs_err out {errs[0]:.3e} gates "
+                      f"{errs[1]:.3e} cs {errs[2]:.3e} (tolerance "
+                      f"{fwd_tol[dtype]:g})", flush=True)
+                check(max(errs) <= fwd_tol[dtype], f"K3 disagrees with its "
+                      f"plain version: {errs} ({tag})")
+                worst["k3"][dtype] = max(worst["k3"][dtype], *errs)
+                x_next = want[0]
+                if dtype == bf16:      # K4 is held to its plain version in
+                    x = x_next         # f32, the trainer's type
+                    continue
+                # K4 on the plain forward's residuals
+                out, gates, cs = want
+                gout = torch.from_numpy(rng.standard_normal(
+                    (B, T, 2 * H)).astype(np.float32)).to(dev)
+                dxp, dwhh = fl.bilstm_train_backward_kernel(
+                    gout, gates, cs, out, w_f, w_b)
+                again = fl.bilstm_train_backward_kernel(
+                    gout, gates, cs, out, w_f, w_b)
+                torch.cuda.synchronize()
+                want_dxp, want_dwhh = fl.bilstm_train_backward_plain(
+                    gout, gates, cs, out, w_f, w_b)
+                check(torch.equal(dxp, again[0])
+                      and torch.equal(dwhh, again[1]),
+                      f"K4 is not bit-identical across two calls ({tag})")
+                e_dxp, e_dw = _max_err(dxp, want_dxp), _rel_err(dwhh,
+                                                                 want_dwhh)
+                print(f"K4 {tag}: max_abs_err dxp {e_dxp:.3e} (tolerance "
+                      f"1e-4), dW_hh {e_dw:.3e} of its largest entry "
+                      f"{want_dwhh.abs().max().item():.3e} (tolerance 1e-3); "
+                      f"two calls bit-identical", flush=True)
+                check(e_dxp <= 1e-4 and e_dw <= 1e-3,
+                      f"K4 disagrees with its plain version ({tag})")
+                worst["k4"] = max(worst["k4"], e_dxp)
+                worst["k4_dwhh"] = max(worst["k4_dwhh"], e_dw)
+                # through the autograd function: every gradient against
+                # autograd through the plain step loop, on the card
+                grads = {}
+                for name, fn in (("kernel", fl.fused_bilstm_train),
+                                 ("plain", plain_lstm)):
+                    leaves = {k: v.clone().requires_grad_()
+                              for k, v in p.items()}
+                    xg = x.clone().requires_grad_()
+                    (fn(leaves, xg) * gout).sum().backward()
+                    grads[name] = {**{k: v.grad for k, v in leaves.items()},
+                                   "x": xg.grad}
+                torch.cuda.synchronize()
+                rel = {k: _rel_err(grads["kernel"][k], grads["plain"][k])
+                       for k in grads["plain"]}
+                top = max(rel, key=rel.get)
+                print(f"K3+K4 {tag} through the autograd function vs "
+                      f"autograd through the plain step loop: 8 parameter "
+                      f"gradients and dx, worst {top} {rel[top]:.3e} of its "
+                      f"largest entry (tolerance 1e-3)", flush=True)
+                check(rel[top] <= 1e-3, f"fused_bilstm_train gradients "
+                      f"disagree: {rel} ({tag})")
+                worst["grads"] = max(worst["grads"], rel[top])
+                if label == "trainer" and layer == "encoder":
+                    timed[B] = (xp_f, xp_b, w_f, w_b, gout, gates, cs, out)
+                x = x_next
+
+    rows = {}
+    for B in (64, 512):
+        xp_f, xp_b, w_f, w_b, gout, gates, cs, out = timed[B]
+        T = xp_f.shape[1]
+        lstm = torch.nn.LSTM(26, H, batch_first=True,
+                             bidirectional=True).to(dev)
+        lstm.flatten_parameters()
+        x = torch.from_numpy(images(rng, B, T, 26)).to(dev, f32)
+        lib_out = lstm(x)[0]
+        row = {
+            "k3": median_ms(lambda: fl.bilstm_train_forward_kernel(
+                xp_f, xp_b, w_f.t(), w_b.t())),
+            "k3_plain": median_ms(lambda: fl.bilstm_train_forward_plain(
+                xp_f, xp_b, w_f.t(), w_b.t())),
+            "k4": median_ms(lambda: fl.bilstm_train_backward_kernel(
+                gout, gates, cs, out, w_f, w_b)),
+            "k4_plain": median_ms(lambda: fl.bilstm_train_backward_plain(
+                gout, gates, cs, out, w_f, w_b)),
+            "lib_fwd": median_ms(lambda: lstm(x)),
+            "lib_bwd": median_ms(lambda: lib_out.backward(
+                gout, retain_graph=True)),
+        }
+        row["k3_bound"], row["k3_by"] = k3_bound_ms(B, T, 4, PEAK_FP32)
+        row["k4_bound"], row["k4_by"] = k4_bound_ms(B, T, 4)
+        rows[B] = row
+        print(f"K3 timing B={B} T={T} H={H} f32 (median of 10, CUDA "
+              f"events): kernel_ms {row['k3']:.4f} plain_ms "
+              f"{row['k3_plain']:.3f} bound_ms {row['k3_bound']:.4f} "
+              f"({row['k3_by']}, FP32 peak) library_ms {row['lib_fwd']:.4f} "
+              f"(nn.LSTM(26, {H}) f32 forward with grad enabled, cuDNN, "
+              f"incl. its input projection)", flush=True)
+        print(f"K4 timing B={B} T={T} H={H} f32 (median of 10, CUDA "
+              f"events; both kernels): kernel_ms {row['k4']:.4f} plain_ms "
+              f"{row['k4_plain']:.3f} bound_ms {row['k4_bound']:.4f} "
+              f"({row['k4_by']}, FP32 peak) library_ms {row['lib_bwd']:.4f} "
+              f"(nn.LSTM(26, {H}) f32 backward, cuDNN, incl. its input "
+              f"projection's gradients)", flush=True)
+    per_kernel = device_breakdown(lambda: fl.bilstm_train_backward_kernel(
+        *timed[512][4:], *timed[512][2:4]))
+    if per_kernel:
+        print("K4 B=512 by kernel (torch.profiler, mean of 3): " + "; ".join(
+            f"{k[:60]} {ms:.4f} ms" for k, ms in sorted(
+                per_kernel.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+    main_b, big = rows[64], rows[512]
+    k3 = {"name": "K3 fused_bilstm_train forward", "route": "cuda",
+          "source": "pepper_tpu_torch/csrc/fused_lstm_train.cu",
+          "replaces": "pepper_tpu/ops/fused_lstm.py:131",
+          "max_abs_err": worst["k3"][f32],
+          "max_abs_err_bf16": worst["k3"][bf16],
+          "ms": main_b["k3"], "plain_ms": main_b["k3_plain"],
+          "bound_ms": main_b["k3_bound"], "bound_by": main_b["k3_by"],
+          "library_ms": main_b["lib_fwd"], "shape": "B=64 T=33 H=256 f32",
+          "ms_b512": big["k3"], "plain_ms_b512": big["k3_plain"],
+          "bound_ms_b512": big["k3_bound"], "library_ms_b512": big["lib_fwd"]}
+    k4 = {"name": "K4 fused_bilstm_train backward", "route": "cuda",
+          "source": "pepper_tpu_torch/csrc/fused_lstm_train.cu",
+          "replaces": "pepper_tpu/ops/fused_lstm.py:167",
+          "max_abs_err": worst["k4"], "max_rel_err_dwhh": worst["k4_dwhh"],
+          "max_rel_err_gradients": worst["grads"],
+          "ms": main_b["k4"], "plain_ms": main_b["k4_plain"],
+          "bound_ms": main_b["k4_bound"], "bound_by": main_b["k4_by"],
+          "library_ms": main_b["lib_bwd"], "shape": "B=64 T=33 H=256 f32",
+          "ms_b512": big["k4"], "plain_ms_b512": big["k4_plain"],
+          "bound_ms_b512": big["k4_bound"], "library_ms_b512": big["lib_bwd"]}
+    return k3, k4
+
+
+# --------------------------------------------------------------- phase 9
+TRAIN_BATCH = 64     # the trainer CLI's default batch size
+
+
+def _one_step(tree, device, x8, y, lr, weight_decay):
+    """One train step (dropout off) from the numpy tree on `device`:
+    (loss, gradients, updated parameters), all on the host."""
+    from pepper_tpu_torch.train import variant_train as vt
+
+    params = vt.trainable(tree, device)
+    optimizer = vt.make_optimizer(params, lr, weight_decay)
+    loss = float(vt.make_train_step(params, optimizer)(x8, y))
+    leaves = dict(vt.sorted_leaves(params))
+    return (loss, {k: p.grad.cpu() for k, p in leaves.items()},
+            {k: p.detach().cpu() for k, p in leaves.items()})
+
+
+def phase_train_step(dev):
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    tree = numpy_variant_tree(81)
+    rng = np.random.default_rng(82)
+    x8 = images(rng, TRAIN_BATCH)
+    y = rng.integers(0, 3, TRAIN_BATCH)
+    lr, wd = 1e-4, 1e-6
+    before = (fl.train_fwd_launches, fl.train_bwd_launches)
+    loss, grads, after = _one_step(tree, dev, x8, y, lr, wd)
+    check((fl.train_fwd_launches - before[0], fl.train_bwd_launches
+           - before[1]) == (2, 2), "a train step on the card must launch "
+          "K3 and K4 twice each")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        want_loss, want_grads, want_after = _one_step(tree, "cpu", x8, y, lr,
+                                                      wd)
+    finally:
+        torch.set_num_threads(threads)
+    check(np.isfinite(loss), "train-step loss is not finite")
+    rel = {k: _rel_err(grads[k], want_grads[k]) for k in want_grads}
+    top = max(rel, key=rel.get)
+    # Adam's first update is lr * g / (|g| + eps): where |g| is near eps
+    # the two devices may round g to either side of zero, so the updated
+    # parameters are compared in units of lr
+    moved = torch.cat([(after[k] - want_after[k]).abs().flatten()
+                       for k in want_after]) / lr
+    far = float((moved > 0.01).float().mean())
+    print(f"train step: one full-width step at batch {TRAIN_BATCH} on the "
+          f"card vs the same step on the CPU (f32, dropout off, Adam lr "
+          f"{lr:g}, weight decay {wd:g}): loss {loss:.6f} vs {want_loss:.6f} "
+          f"(tolerance 1e-4 relative); {len(rel)} gradients, worst {top} "
+          f"{rel[top]:.3e} of its largest entry (tolerance 1e-3); updated "
+          f"parameters differ by at most {float(moved.max()):.3e} lr "
+          f"(tolerance 2 lr), {100 * far:.4f}% of {moved.numel()} by more "
+          f"than 0.01 lr (tolerance 0.1%)", flush=True)
+    check(abs(loss - want_loss) <= 1e-4 * abs(want_loss),
+          "train-step loss disagrees with the CPU step")
+    check(rel[top] <= 1e-3, f"train-step gradients disagree: {rel}")
+    check(float(moved.max()) <= 2.0 and far <= 1e-3,
+          "updated parameters disagree with the CPU step")
+
+
+# -------------------------------------------------------------- phase 10
+def labeled_images(work_dir):
+    """(int8 images [N,33,26], type labels [N]) of a synthetic dataset with
+    a truth VCF: the native encoder in train mode, region by region, in
+    memory (no HDF5 store)."""
+    from pepper_tpu_torch.encode.region_encoder import CandidateBatch
+    from pepper_tpu_torch.io.bam_reader import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.options import PipelineConfig
+    from pepper_tpu_torch.pipelines.make_images import (build_intervals,
+                                                        create_region_summary)
+    from pepper_tpu_torch.presets import set_parameters
+    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
+                                              simulate_reads, write_dataset,
+                                              write_truth_vcf)
+
+    genome = random_genome(60_000, seed=91)
+    variants = plant_variants(dict(genome), 500, 80, 80, seed=92)
+    fasta, bam = write_dataset(work_dir, genome, simulate_reads(
+        genome, variants, coverage=30, seed=93, error_rate=0.03))
+    truth = write_truth_vcf(os.path.join(work_dir, "truth.vcf"), genome,
+                            variants)
+    config = set_parameters(PipelineConfig(
+        bam=bam, fasta=fasta, output_dir=work_dir,
+        sub_command="make_train_images", ont_r9_guppy5_sup=True, threads=1,
+        region_size=20_000, train_mode=True, truth_vcf=truth,
+        random_draw_probability=1.0))
+    xs, ys = [], []
+    with BamReader(bam) as reader, FastaReader(fasta) as fa:
+        for contig, start, end in build_intervals(config):
+            cands = create_region_summary(config, reader, fa, contig, start,
+                                          end)
+            if not cands:
+                continue
+            if isinstance(cands, CandidateBatch):
+                xs.append(np.asarray(cands.images))
+                ys.append(np.asarray(cands.type_labels))
+            else:
+                xs.append(np.stack([np.asarray(c.image) for c in cands]))
+                ys.append(np.array([c.type_label for c in cands]))
+    check(bool(xs), "the train-mode encoder produced no labeled image")
+    return (np.concatenate(xs).astype(np.int8),
+            np.concatenate(ys).astype(np.int32), len(variants))
+
+
+def phase_trainer(dev, work_dir, name):
+    from pepper_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                    load_opt_state)
+    from pepper_tpu_torch.ops import fused_lstm as fl
+    from pepper_tpu_torch.train import variant_train as vt
+    from pepper_tpu_torch.train.dataloader import ShuffleBufferLoader
+
+    t0 = time.time()
+    x8, y, n_variants = labeled_images(work_dir)
+    n = len(x8)
+    check(x8.shape[1:] == (33, 26) and n >= 2 * TRAIN_BATCH,
+          f"too few labeled images for the trainer: {x8.shape}")
+    print(f"training dataset: 60000 bp, {n_variants} planted variants, "
+          f"coverage 30, {n} labeled images {x8.shape[1:]} (labels "
+          f"{np.bincount(y, minlength=3).tolist()}) "
+          f"[{time.time() - t0:.1f}s]", flush=True)
+    per_epoch = n // TRAIN_BATCH
+    step_size = min(10, per_epoch)
+    epochs = -(-20 // step_size)
+    steps = epochs * step_size
+    evals = steps // step_size
+    eval_batches = -(-n // 512)
+    test = {"images": x8, "type_label": y}
+
+    def csv_losses(model_dir):
+        path = glob.glob(os.path.join(model_dir, "stats_*",
+                                      "train_loss.csv"))[0]
+        with open(path) as fh:
+            return [float(ln.split(",")[2]) for ln in fh]
+
+    # the main path: the port's training loop on the card
+    model_dir = os.path.join(work_dir, "models")
+    torch.cuda.reset_peak_memory_stats()
+    fl.launches = fl.train_fwd_launches = fl.train_bwd_launches = 0
+    t = time.time()
+    best = vt.train_loop(
+        ShuffleBufferLoader.from_arrays(x8, y, TRAIN_BATCH), test, model_dir,
+        epoch_limit=epochs, step_size=step_size, seed=7, device="cuda")
+    wall = time.time() - t
+    counts = (fl.launches, fl.train_fwd_launches, fl.train_bwd_launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(counts[1] == 2 * steps and counts[2] == 2 * steps,
+          f"{steps} train steps launched K3 {counts[1]} and K4 {counts[2]} "
+          f"times (expected {2 * steps} each)")
+    check(counts[0] == 2 * eval_batches * evals,
+          f"{evals} evals of {eval_batches} batches launched K1 {counts[0]} "
+          f"times (expected {2 * eval_batches * evals})")
+    losses = csv_losses(model_dir)
+    check(len(losses) == steps and bool(np.isfinite(losses).all()),
+          f"expected {steps} finite losses, got {losses}")
+    head, tail = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(tail < head, f"the loss did not fall: {losses}")
+    params, meta = load_checkpoint(best)
+    saved = load_opt_state(best)
+    check(saved is not None and len(saved) == 3 + 2 * 28
+          and meta["step"] <= steps, "the checkpoint lacks optimizer state")
+    check(all(np.isfinite(v).all() for _, v in vt.sorted_leaves(params)),
+          "the checkpoint holds non-finite parameters")
+
+    # resume from the checkpoint with its optimizer state
+    resumed_dir = os.path.join(work_dir, "resumed")
+    resumed = vt.train_loop(
+        ShuffleBufferLoader.from_arrays(x8, y, TRAIN_BATCH), test,
+        resumed_dir, epoch_limit=1, step_size=3, seed=8, device="cuda",
+        retrain_model_path=best)
+    resumed_losses = csv_losses(resumed_dir)
+    steps_after = int(load_opt_state(resumed)[2])
+    check(steps_after == int(saved[2]) + 3, f"the resumed run's optimizer "
+          f"count is {steps_after}, expected {int(saved[2]) + 3}")
+    check(float(np.mean(resumed_losses)) < head, "the resumed run did not "
+          f"start from the trained parameters: {resumed_losses}")
+
+    # steady-state step time and its device time by kernel
+    trained = vt.trainable(params, dev)
+    optimizer = vt.make_optimizer(trained, 1e-4, 1e-6)
+    step = vt.make_train_step(trained, optimizer)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bx, by = x8[:TRAIN_BATCH], y[:TRAIN_BATCH]
+    step_ms = median_ms(lambda: step(bx, by, gen))
+    per_kernel = device_breakdown(lambda: step(bx, by, gen))
+    print(f"trainer on {name}: {steps} steps at batch {TRAIN_BATCH} with "
+          f"{evals} evals ({n} images each) and checkpoints in {wall:.2f}s "
+          f"wall; loss {head:.3f} (mean of the first 3 steps) -> {tail:.3f} "
+          f"(last 3); K3 launches {counts[1]}, K4 launches {counts[2]} (2 "
+          f"per step each), K1 launches {counts[0]} (evals); best accuracy "
+          f"{meta['accuracy']:.2f}% at step {meta['step']}; resumed 3 steps "
+          f"from the checkpoint: optimizer count {int(saved[2])} -> "
+          f"{steps_after}, loss {np.mean(resumed_losses):.3f}; one train "
+          f"step {step_ms:.3f} ms (CUDA events, median of 10, upload "
+          f"included); peak CUDA memory {peak_gb:.2f} GB", flush=True)
+    total = sum(per_kernel.values())
+    if total:
+        groups = {"K3": 0.0, "K4 recurrence": 0.0, "K4 dW_hh": 0.0}
+        for k, ms in per_kernel.items():
+            if "bilstm_bwd_kernel" in k:
+                groups["K4 recurrence"] += ms
+            elif "bilstm_dwhh_kernel" in k:
+                groups["K4 dW_hh"] += ms
+            elif "bilstm_kernel" in k:
+                groups["K3"] += ms
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+        print(f"profile of one train step at batch {TRAIN_BATCH} "
+              f"(torch.profiler, mean of 3): device busy {total:.3f} ms of "
+              f"{step_ms:.3f} ms ({100 * (1 - total / step_ms):.0f}% idle); "
+              + "; ".join(f"{k} {ms:.3f} ms ({100 * ms / total:.0f}%)"
+                          for k, ms in groups.items()) + "; top kernels: "
+              + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top),
+              flush=True)
+    else:
+        print("profile: torch.profiler recorded no device time (device "
+              "breakdown not measured)", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -770,18 +1207,22 @@ def main() -> int:
     k2 = phase_k2(dev)
     phase_model(dev)
     phase_polish_model(dev)
+    k3, k4 = phase_train_kernels(dev)
+    phase_train_step(dev)
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_",
                                 dir=os.path.join(ROOT, "build"))
-    for sub in ("variant", "polish"):
+    for sub in ("variant", "polish", "train"):
         os.makedirs(os.path.join(work_dir, sub))
     try:
         k1["launches"] = phase_end_to_end(
             dev, os.path.join(work_dir, "variant"), env["card"])
         k2["launches"] = phase_polish_end_to_end(
             dev, os.path.join(work_dir, "polish"), env["card"])
+        k1["launches_trainer_evals"], k3["launches"], k4["launches"] = \
+            phase_trainer(dev, os.path.join(work_dir, "train"), env["card"])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

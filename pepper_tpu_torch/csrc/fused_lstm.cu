@@ -31,118 +31,9 @@
 // cluster-resident W_hh is the redesign left for a later change. The
 // ragged batch edge is masked here instead of padding the batch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_lstm_common.cuh"   // the recurrence template and its helpers
 
 namespace {
-
-constexpr int kBT = 16;          // batch rows per block
-constexpr int kMaxH = 256;       // one thread per hidden unit
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// the four consecutive weights of one hidden unit's gates, widened to f32
-__device__ __forceinline__ void load4(const float* p, float (&w)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// grid (ceil(B / kBT), 2 directions), block H threads.
-// xp_*: [B, T, 4H] (gate order i, f, g, o; biases folded in)
-// w_*:  [H, 4H] permuted W_hh^T: column 4j+q holds gate q of hidden unit j
-// out:  [B, T, 2H]; direction d writes columns [d*H, (d+1)*H)
-template <typename T>
-__global__ void __launch_bounds__(kMaxH, 2)
-bilstm_kernel(const T* __restrict__ xp_f, const T* __restrict__ xp_b,
-              const T* __restrict__ w_f, const T* __restrict__ w_b,
-              T* __restrict__ out, int B, int steps, int H) {
-  extern __shared__ float h_smem[];        // [2][H][kBT], h_{t-1} as f32
-  const int dir = blockIdx.y;
-  const T* __restrict__ xp = dir ? xp_b : xp_f;
-  const T* __restrict__ w = dir ? w_b : w_f;
-  const int j = threadIdx.x;
-  const int b0 = blockIdx.x * kBT;
-  const int G = 4 * H;
-
-  for (int i = j; i < H * kBT; i += blockDim.x) h_smem[i] = 0.0f;
-  float c[kBT];
-#pragma unroll
-  for (int r = 0; r < kBT; ++r) c[r] = 0.0f;
-  __syncthreads();
-
-  for (int s = 0; s < steps; ++s) {
-    const int t = dir ? steps - 1 - s : s;
-    const float* __restrict__ h_prev = h_smem + (s & 1) * H * kBT;
-    float* __restrict__ h_next = h_smem + ((s + 1) & 1) * H * kBT;
-
-    float acc[kBT][4];
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[r][q] = 0.0f;
-    }
-
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) {
-      float wk[4];
-      load4(w + (size_t)k * G + 4 * j, wk);
-      const float4* hk = reinterpret_cast<const float4*>(h_prev + k * kBT);
-#pragma unroll
-      for (int r4 = 0; r4 < kBT / 4; ++r4) {
-        const float4 hv = hk[r4];
-        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            acc[4 * r4 + u][q] = fmaf(hr[u], wk[q], acc[4 * r4 + u][q]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < kBT; ++r) {
-      const int b = b0 + r;
-      float h_new = 0.0f;
-      if (b < B) {
-        const T* __restrict__ xr = xp + ((size_t)b * steps + t) * G;
-        const float gi = to_float(xr[j]) + acc[r][0];
-        const float gf = to_float(xr[H + j]) + acc[r][1];
-        const float gg = to_float(xr[2 * H + j]) + acc[r][2];
-        const float go = to_float(xr[3 * H + j]) + acc[r][3];
-        c[r] = sigmoid(gf) * c[r] + sigmoid(gi) * tanhf(gg);
-        const T h = from_float<T>(sigmoid(go) * tanhf(c[r]));
-        out[((size_t)b * steps + t) * 2 * H + dir * H + j] = h;
-        h_new = to_float(h);
-      }
-      h_next[j * kBT + r] = h_new;
-    }
-    __syncthreads();
-  }
-}
 
 template <typename T>
 int launch(const void* xp_f, const void* xp_b, const void* w_f,
@@ -150,10 +41,10 @@ int launch(const void* xp_f, const void* xp_b, const void* w_f,
            cudaStream_t stream) {
   const dim3 grid((B + kBT - 1) / kBT, 2);
   const size_t smem = 2 * (size_t)H * kBT * sizeof(float);
-  bilstm_kernel<T><<<grid, H, smem, stream>>>(
+  bilstm_kernel<T, false><<<grid, H, smem, stream>>>(
       static_cast<const T*>(xp_f), static_cast<const T*>(xp_b),
       static_cast<const T*>(w_f), static_cast<const T*>(w_b),
-      static_cast<T*>(out), B, steps, H);
+      static_cast<T*>(out), nullptr, nullptr, B, steps, H);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,16 @@ module names (rnn.py); `params_from_jax` places such a tree on a torch
 device in one dtype. Reference .pkl checkpoints import through
 `load_torch_checkpoint`, including the DataParallel 'module.' prefix strip
 (ModelHander.py:35-39).
+
+The optimizer state travels in the same file as ordered leaves
+('__opt__/<i>'), in the order the JAX package writes them (the leaves of
+its optimizer state: step count, learning rate, Adam count, first moments,
+second moments, each moment tree in sorted-key order), so a checkpoint of
+either package resumes in the other. This module only stores and returns
+the list; train/variant_train.py maps it onto torch.optim.Adam.
 """
 import json
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +47,17 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
     return tree
 
 
-def save_checkpoint(path: str, params: Dict, meta: Meta = None) -> None:
-    """Params (numpy arrays or tensors) to one flat .npz."""
+def save_checkpoint(path: str, params: Dict, meta: Meta = None,
+                    opt_state: Optional[Sequence[np.ndarray]] = None) -> None:
+    """Params (numpy arrays or tensors), and optionally the optimizer
+    state's ordered leaves, to one flat .npz. The optimizer state plays the
+    reference's 'model_optimizer' role (ModelHander.py:5-16): saved per
+    checkpoint so --retrain_model_path resumes the Adam moments."""
     flat = _flatten(params)
     flat["__meta__"] = np.frombuffer(
         json.dumps(meta or {}).encode(), dtype=np.uint8)
+    for i, leaf in enumerate(opt_state or ()):
+        flat[f"__opt__/{i}"] = np.asarray(leaf)
     np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
 
 
@@ -56,6 +69,15 @@ def load_checkpoint(path: str) -> Tuple[Dict, Meta]:
         meta = (json.loads(bytes(z["__meta__"]).decode())
                 if "__meta__" in z.files else {})
     return _unflatten(flat), meta
+
+
+def load_opt_state(path: str) -> Optional[List[np.ndarray]]:
+    """The optimizer state's leaves, in saved order; None when the
+    checkpoint carries no optimizer state."""
+    with np.load(path) as z:
+        keys = sorted((k for k in z.files if k.startswith("__opt__/")),
+                      key=lambda k: int(k.split("/")[1]))
+        return [z[k] for k in keys] or None
 
 
 def from_torch_state_dict(state_dict: Dict[str, Any]) -> Dict:

@@ -1,25 +1,29 @@
-"""Variant-calling genotype classifier, inference forward (PyTorch).
+"""Variant-calling genotype classifier (PyTorch): inference and training
+forward.
 
 Architecture parity with the reference's live model
 (pepper_variant/modules/python/models/simple_model.py:6-82) and with
 pepper_tpu/models/variant_model.py:
-  biLSTM(F->256) -> biLSTM(512->256) -> flatten [B, 33*512]
-  -> 5 x (Linear 512 + SELU) -> Linear(512 -> 3) type head -> softmax.
+  biLSTM(F->256) -> biLSTM(512->256) -> dropout .2 -> flatten [B, 33*512]
+  -> 5 x (Linear 512 + SELU + dropout .2, last without dropout)
+  -> Linear(512 -> 3) type head -> softmax (inference).
 
 Functional: params are the nested dict of tensors whose names/shapes mirror
 the torch module attributes (models/checkpoint.py). Both biLSTM layers run
 through ops/fused_lstm.py: kernel K1 for CUDA tensors, its plain version
 for CPU tensors. The softmax runs in the working dtype, as the JAX forward
-does; callers cast the probabilities to float32 afterwards. Training mode
-and dropout are not ported yet (ROADMAP M5).
+does; callers cast the probabilities to float32 afterwards. In training
+mode the layers run `fused_bilstm_train` (kernels K3 and K4 for CUDA
+tensors), dropout is active when a generator is given, and the logits are
+returned.
 """
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from pepper_tpu_torch.models.rnn import init_linear_params, init_rnn_params, linear
-from pepper_tpu_torch.ops.fused_lstm import fused_bilstm
+from pepper_tpu_torch.ops.fused_lstm import fused_bilstm, fused_bilstm_train
 from pepper_tpu_torch.options import ImageOptions
 
 Params = Dict
@@ -43,12 +47,36 @@ def init_variant_params(gen: torch.Generator,
     }
 
 
-def variant_forward(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, 33, F] in the params' dtype. Returns softmax probs [B, 3]."""
-    h = fused_bilstm(params["encoder"], x)
-    h = fused_bilstm(params["decoder"], h)
+def _dropout(x: torch.Tensor, rate: float,
+             gen: torch.Generator) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1-rate, rescale the kept."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def variant_forward(params: Params, x: torch.Tensor, train_mode: bool = False,
+                    dropout_gen: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """x: [B, 33, F] in the params' dtype. Returns softmax probs [B, 3], or
+    the logits when train_mode (the reference's train-time contract).
+
+    dropout_gen: a generator on x's device; dropout 0.2 is applied in
+    train mode after the LSTM stack and after linear_1..4, drawing from it
+    in that order. None skips dropout."""
+    layer = fused_bilstm_train if train_mode else fused_bilstm
+    h = layer(params["encoder"], x)
+    h = layer(params["decoder"], h)
+    drop = train_mode and dropout_gen is not None
+    if drop:
+        h = _dropout(h, 0.2, dropout_gen)
     h = h.reshape(h.shape[0], -1)
-    for name in ("linear_1", "linear_2", "linear_3", "linear_4", "linear_5"):
+    for name in ("linear_1", "linear_2", "linear_3", "linear_4"):
         h = F.selu(linear(params[name], h))
+        if drop:
+            h = _dropout(h, 0.2, dropout_gen)
+    h = F.selu(linear(params["linear_5"], h))
     logits = linear(params["output_layer_type"], h)
+    if train_mode:
+        return logits
     return torch.softmax(logits, dim=-1)

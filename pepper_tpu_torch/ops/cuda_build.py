@@ -3,12 +3,14 @@
 Each source under `pepper_tpu_torch/csrc/` is compiled by `nvcc` for
 `sm_90a` into a shared library with a plain C interface, written into
 `build/pepper_tpu_torch/csrc/` at the root of the checkout (git-ignored).
-A library is rebuilt when its source is newer. Concurrent first uses (test
-workers, threads) serialize on a file lock, and the library is renamed into
-place only when complete.
+A library is rebuilt when its source or a header beside it is newer. First
+uses of different libraries build at the same time; concurrent first uses of
+one library (test workers, threads) serialize on a file lock, and the library
+is renamed into place only when complete.
 """
 import ctypes
 import fcntl
+import glob
 import os
 import shutil
 import subprocess
@@ -28,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 build_seconds: Dict[str, float] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()                      # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}   # one build or load per library
 
 
 def nvcc() -> str:
@@ -58,8 +61,9 @@ def build_log(name: str) -> str:
 
 def _build(name: str, source: str) -> float:
     lib = library_path(name)
-    if (os.path.isfile(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(source)):
+    inputs = [source] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    if (os.path.isfile(lib) and os.path.getmtime(lib)
+            >= max(os.path.getmtime(p) for p in inputs)):
         return 0.0
     t0 = time.time()
     tmp = f"{lib}.{os.getpid()}.tmp"
@@ -77,6 +81,8 @@ def _build(name: str, source: str) -> float:
 def load_library(name: str) -> ctypes.CDLL:
     """The CDLL built from csrc/<name>.cu, building it first if needed."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         source = os.path.join(CSRC_DIR, f"{name}.cu")

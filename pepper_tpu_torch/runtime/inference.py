@@ -34,6 +34,41 @@ def image_files(image_dir: str) -> List[str]:
                   + glob.glob(os.path.join(image_dir, "*.h5")))
 
 
+def load_all_summaries(image_dir, train_mode: bool = False):
+    """Eager load of every summary group (reference dataloader_predict.py).
+
+    `image_dir` may also be an explicit list of files (multi-host shards)."""
+    contigs, positions, depths, candidates, freqs, images = [], [], [], [], [], []
+    labels = []
+    files = image_dir if isinstance(image_dir, (list, tuple)) \
+        else image_files(image_dir)
+    for path in files:
+        with ImageStore(path, "r") as store:
+            for name in store.summary_names():
+                s = store.read_summary(name, train_mode=train_mode)
+                contigs.extend(s["contigs"])
+                positions.append(s["positions"])
+                depths.append(s["depths"])
+                candidates.extend(s["candidates"])
+                freqs.append(s["candidate_frequency"])
+                images.append(s["images"])
+                if train_mode and "type_label" in s:
+                    labels.append(s["type_label"])
+    if not images:
+        return None
+    out = dict(
+        contigs=contigs,
+        positions=np.concatenate(positions),
+        depths=np.concatenate(depths),
+        candidates=candidates,
+        candidate_frequency=np.concatenate(freqs),
+        images=np.concatenate(images),
+    )
+    if labels:
+        out["type_label"] = np.concatenate(labels)
+    return out
+
+
 def _load_model_params(model_path: str):
     from pepper_tpu_torch.models import checkpoint as ckpt
     if model_path.endswith(".npz"):
