@@ -8,10 +8,14 @@ at once, into the git-ignored build/ directory, then:
 
   1. prints the card, its power limit, the torch/CUDA versions, the build
      times, and whether the native host encoder and h5py are there;
-  2. holds kernel K1 (fused biLSTM recurrence) against its plain PyTorch
-     version at the runner's shapes and on a ragged HP-window shape, bf16
-     and f32, and times it beside its bound, the plain version and
-     nn.LSTM (cuDNN) as a yardstick;
+  2. holds kernel K1 (fused biLSTM recurrence: the tensor-core cluster
+     kernel in bf16, the FMA cluster kernel in f32, the generic kernel for
+     other widths) against its plain PyTorch version at the runner's
+     shapes, on a ragged HP-window shape, one row past many tiles, fewer
+     rows than a tile, one step and hidden 128 and 32, two calls
+     bit-identical, and times it beside its bound, the generic kernel, the
+     plain version, nn.LSTM (cuDNN) as a yardstick, and a build of the same
+     kernel with exact tanhf/expf in place of tanh.approx;
   3. holds kernel K2 (fused biGRU recurrence, h0 in, final h out) against
      its plain version at the polish shapes (encoder and decoder layers)
      and on a ragged batch, bf16 and f32, and times it beside its bound,
@@ -22,17 +26,21 @@ at once, into the git-ignored build/ directory, then:
      the card and holds them against the plain f32 CPU versions;
   6. runs the streamed call_variant end to end on a synthetic ~100 kb
      dataset on the card (bf16, then f32) and on the CPU (f32), checks
-     that K1 was launched and that the VCFs agree;
+     that K1 was launched and that the VCFs agree, and that the forward's
+     device time by kernel holds no elementwise pass over the input
+     projections (the biases are added inside K1);
   7. runs the streamed polish end to end on a synthetic ~100 kb draft on
      the card (bf16, then f32) and on the CPU (f32), checks that K2 was
      launched 38 times per device batch and that the consensus agrees;
   8. holds kernels K3 (residual-saving biLSTM forward) and K4 (BPTT
      backward and dW_hh) against their plain versions at the trainer's
-     shapes (batch 512 and 64, encoder and decoder layers) and on a ragged
-     HP-window shape, K3 also in bf16, and through the autograd function
+     shapes (batch 512 and 64, encoder and decoder layers), on a ragged
+     HP-window shape and at the cluster kernel's tile edges, K3 also in
+     bf16 and two calls bit-identical, and through the autograd function
      every gradient against autograd through the plain step loop; checks
      that two backward calls give identical bits; times both beside their
-     bounds, the plain versions and nn.LSTM (cuDNN) forward and backward;
+     bounds, K3's generic kernel, the plain versions and nn.LSTM (cuDNN)
+     forward and backward, and K3's host time per launch;
   9. takes one full-width train step on the card and holds its loss, every
      gradient and the updated parameters against the same step on the CPU;
  10. trains for ~20 steps at batch 64 on labeled images encoded in memory
@@ -71,6 +79,8 @@ H = 256            # classifier biLSTM hidden size
 PH = 128           # polish biGRU hidden size
 WINDOW = 100       # polish window (19 per 1000-long sequence)
 POLISH_BATCH = 128
+# builds the tensor-core K1 with tanhf/expf in place of tanh.approx
+EXACT_ACTIVATIONS = ("PEPPER_EXACT_ACTIVATIONS",)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -104,6 +114,19 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of fn() while the device queue has room:
+    n calls enqueued back to back from an idle device, no wait between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
 def device_breakdown(fn, reps: int = 3) -> dict:
     """Device milliseconds per call of fn, by kernel name, from a
     torch.profiler (CUPTI) trace of `reps` calls after one warm-up."""
@@ -126,6 +149,16 @@ def device_breakdown(fn, reps: int = 3) -> dict:
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us() / 1e3 / reps)
     return per_kernel
+
+
+def _max_err(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _rel_err(got, want) -> float:
+    """Max abs error relative to the reference's largest entry (at least
+    1): sums of B*T products taken in another order."""
+    return _max_err(got, want) / max(1.0, want.float().abs().max().item())
 
 
 def numpy_variant_tree(seed: int, features: int = 26, window: int = 33):
@@ -211,7 +244,8 @@ def phase_environment():
 
     threads = [threading.Thread(target=build, args=(fn,)) for fn in (
         fused_lstm._kernel_lib, fused_lstm._train_kernel_lib,
-        fused_gru._kernel_lib, bamio.available)]
+        fused_gru._kernel_lib, bamio.available,
+        lambda: fused_lstm.load_forward_library(EXACT_ACTIVATIONS))]
     for t in threads:
         t.start()
     for t in threads:
@@ -250,6 +284,14 @@ def k1_bound_ms(B: int, T: int, elem: int, peak_ops: float):
                                        else "operations")
 
 
+def _layer_args(p):
+    """(W_hh^T forward, W_hh^T reverse, the four biases) of a layer."""
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    return (p["weight_hh_l0"].t(), p["weight_hh_l0_reverse"].t(),
+            fl.layer_biases(p))
+
+
 def phase_kernel(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
     from pepper_tpu_torch.ops import fused_lstm as fl
@@ -259,60 +301,151 @@ def phase_kernel(dev):
     hp_tree = numpy_variant_tree(13, features=48, window=21)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
-    timed = None
-    cases = [("runner", 16384, 33, 26, tree), ("hp_ragged", 1000, 21, 48,
-                                                hp_tree)]
+    timed = {}
+    # the runner's batch, a ragged HP-window batch, and where a cluster
+    # kernel's tiles can go wrong: one row past many tiles, fewer rows than
+    # one tile, one step
+    cases = [("runner", 16384, 33, 26, tree),
+             ("hp_ragged", 1000, 21, 48, hp_tree),
+             ("one_past_the_tiles", 16385, 2, 26, tree),
+             ("below_one_tile", 5, 33, 26, tree),
+             ("one_step", 37, 1, 26, tree)]
     for dtype in (torch.bfloat16, torch.float32):
         for label, B, T, F, t in cases:
             params = params_from_jax(t, dev, dtype)
             x = torch.from_numpy(images(rng, B, T, F)).to(dev, dtype)
             for layer in ("encoder", "decoder"):
                 p = params[layer]
-                xp_f, xp_b = fl.input_projections(p, x)
-                w_f, w_b = p["weight_hh_l0"].t(), p["weight_hh_l0_reverse"].t()
-                got = fl.bilstm_recurrence_kernel(xp_f, xp_b, w_f, w_b)
+                name = fl.select_kernel(B, T, H, dtype)
+                pack = fl.packed_layer(p, name)
+                xp = fl.packed_projections(pack, x)
+                got = fl.bilstm_recurrence_packed(pack, *xp)
+                again = fl.bilstm_recurrence_packed(pack, *xp)
                 torch.cuda.synchronize()
-                want = fl.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b)
+                raw = fl.raw_projections(p, x)
+                want = fl.bilstm_recurrence_plain(*raw, *_layer_args(p))
                 err = (got.float() - want.float()).abs().max().item()
                 check(bool(torch.isfinite(got.float()).all()),
                       f"K1 non-finite output ({label} {layer} {dtype})")
-                print(f"K1 {label} B={B} T={T} {layer} (F={x.shape[-1]}) "
-                      f"{str(dtype)[6:]}: max_abs_err {err:.3e} "
-                      f"(tolerance {tol[dtype]:g})", flush=True)
+                check(torch.equal(got, again), f"K1 is not bit-identical "
+                      f"across two calls ({label} {layer} {dtype})")
+                print(f"K1 {name} {label} B={B} T={T} {layer} (F="
+                      f"{x.shape[-1]}) {str(dtype)[6:]}: max_abs_err "
+                      f"{err:.3e} (tolerance {tol[dtype]:g}); two calls "
+                      f"bit-identical", flush=True)
                 check(err <= tol[dtype], f"K1 disagrees with its plain "
                       f"version: {err} > {tol[dtype]} ({label} {layer} "
                       f"{dtype})")
                 worst[dtype] = max(worst[dtype], err)
-                if (label, layer, dtype) == ("runner", "encoder",
-                                             torch.bfloat16):
-                    timed = (xp_f, xp_b, w_f, w_b)
+                if (label, layer) == ("runner", "encoder"):
+                    timed[dtype] = (p, x, pack, xp, raw)
                 x = want   # the next layer reads this layer's output
-    xp_f, xp_b, w_f, w_b = timed
-    B, T = xp_f.shape[:2]
-    kernel_ms = median_ms(
-        lambda: fl.bilstm_recurrence_kernel(xp_f, xp_b, w_f, w_b))
+    # H=128 (the cluster kernels' other width) and a width only the generic
+    # kernel takes, through the layer function
+    for Hs, dtype in ((128, torch.bfloat16), (128, torch.float32),
+                      (32, torch.bfloat16)):
+        g = torch.Generator().manual_seed(Hs)
+        p = {n: ((torch.rand((4 * Hs, 26) if "weight_ih" in n else
+                             (4 * Hs, Hs) if "weight_hh" in n else (4 * Hs,),
+                             generator=g) * 2 - 1) / Hs ** 0.5).to(dev, dtype)
+             for n in fl._PARAM_NAMES}
+        x = torch.from_numpy(images(rng, 37, 17, 26)).to(dev, dtype)
+        got = fl.fused_bilstm(p, x)
+        torch.cuda.synchronize()
+        want = fl.bilstm_recurrence_plain(*fl.raw_projections(p, x),
+                                          *_layer_args(p))
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"K1 {fl.select_kernel(37, 17, Hs, dtype)} H={Hs} B=37 T=17 "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (tolerance "
+              f"{tol[dtype]:g})", flush=True)
+        check(err <= tol[dtype], f"K1 disagrees with its plain version at "
+              f"H={Hs} {dtype}: {err}")
+        worst[dtype] = max(worst[dtype], err)
+
+    p, x, pack, xp, raw = timed[torch.bfloat16]
+    B, T = x.shape[:2]
+    # the generic kernel (the only K1 before the cluster kernels), on the
+    # same raw projections in its own column order
+    old_pack = fl.packed_layer(p, "generic")
+    old_xp = fl.packed_projections(old_pack, x)
+    runs = {"cluster_mma": [], "generic": []}
+    for name, pk, xs in (("generic", old_pack, old_xp),
+                         ("cluster_mma", pack, xp),
+                         ("cluster_mma", pack, xp),
+                         ("generic", old_pack, old_xp)):
+        runs[name].append(median_ms(
+            lambda: fl.bilstm_recurrence_packed(pk, *xs)))
+    kernel_ms, old_ms = min(runs["cluster_mma"]), min(runs["generic"])
+    del old_xp
+    # what tanh.approx buys: the same kernel built with tanhf/expf, timed
+    # approx, exact, exact, approx, and both held to the plain version
+    want = fl.bilstm_recurrence_plain(*raw, *_layer_args(p))
+    approx_err = _max_err(fl.bilstm_recurrence_packed(pack, *xp), want)
+    approx_lib = fl._kernel_lib()
+    exact_lib = fl.load_forward_library(EXACT_ACTIVATIONS)
+    act_runs = {"approx": [], "exact": []}
+    try:
+        for label in ("approx", "exact", "exact", "approx"):
+            fl._lib = exact_lib if label == "exact" else approx_lib
+            act_runs[label].append(median_ms(
+                lambda: fl.bilstm_recurrence_packed(pack, *xp)))
+        fl._lib = exact_lib
+        exact_err = _max_err(fl.bilstm_recurrence_packed(pack, *xp), want)
+    finally:
+        fl._lib = approx_lib
+    exact_ms = min(act_runs["exact"])
+    check(exact_err <= tol[torch.bfloat16], f"K1 built with exact "
+          f"activations disagrees with its plain version: {exact_err}")
+    del want
+    print(f"K1 activations B={B} T={T} H={H} bf16 (median of 10, timed "
+          f"approx, exact, exact, approx): tanh.approx {act_runs['approx']} "
+          f"ms, max_abs_err {approx_err:.3e}; tanhf/expf "
+          f"{act_runs['exact']} ms, max_abs_err {exact_err:.3e}", flush=True)
     plain_ms = median_ms(
-        lambda: fl.bilstm_recurrence_plain(xp_f, xp_b, w_f, w_b))
+        lambda: fl.bilstm_recurrence_plain(*raw, *_layer_args(p)), reps=3,
+        warmup=1)
     lstm = torch.nn.LSTM(26, H, batch_first=True, bidirectional=True).to(
         dev, torch.bfloat16)
     lstm.flatten_parameters()
-    x = torch.from_numpy(images(rng, B, T, 26)).to(dev, torch.bfloat16)
     with torch.inference_mode():
         library_ms = median_ms(lambda: lstm(x))
+    # f32 at the runner's batch: select_kernel's choice (the generic
+    # kernel above 640 rows) beside the FMA cluster kernel
+    p32, x32, pack32, xp32, _ = timed[torch.float32]
+    f32_name = pack32.name
+    f32_ms = median_ms(lambda: fl.bilstm_recurrence_packed(pack32, *xp32),
+                       reps=3, warmup=1)
+    del xp32
+    fma32 = fl.packed_layer(p32, "cluster_fma")
+    fma_xp32 = fl.packed_projections(fma32, x32)
+    f32_fma_ms = median_ms(
+        lambda: fl.bilstm_recurrence_packed(fma32, *fma_xp32), reps=3,
+        warmup=1)
+    del fma_xp32
     bound_ms, bound_by = k1_bound_ms(B, T, 2, PEAK_BF16)
     f32_bound_ms, _ = k1_bound_ms(B, T, 4, PEAK_FP32)
-    print(f"K1 timing B={B} T={T} H={H} bf16 (median of 10, CUDA events): "
-          f"kernel_ms {kernel_ms:.3f} plain_ms {plain_ms:.3f} bound_ms "
-          f"{bound_ms:.3f} ({bound_by}) library_ms {library_ms:.3f} "
-          f"(nn.LSTM bf16, cuDNN, incl. its input projection); "
-          f"f32 bound at the FP32 peak {f32_bound_ms:.3f} ms", flush=True)
+    print(f"K1 timing B={B} T={T} H={H} bf16 (median of 10, CUDA events; "
+          f"kernels timed generic, cluster_mma, cluster_mma, generic, the "
+          f"smaller median of each): kernel_ms {kernel_ms:.3f} "
+          f"(cluster_mma; {runs['cluster_mma']}) generic_kernel_ms "
+          f"{old_ms:.3f} ({runs['generic']}) plain_ms {plain_ms:.3f} "
+          f"bound_ms {bound_ms:.3f} ({bound_by}) library_ms "
+          f"{library_ms:.3f} (nn.LSTM bf16, cuDNN, incl. its input "
+          f"projection); f32 (median of 3): {f32_name} (selected) "
+          f"{f32_ms:.3f} ms, cluster_fma {f32_fma_ms:.3f} ms, bound at the "
+          f"FP32 peak {f32_bound_ms:.3f} ms", flush=True)
     return {"name": "K1 fused_bilstm", "route": "cuda",
             "source": "pepper_tpu_torch/csrc/fused_lstm.cu",
             "replaces": "pepper_tpu/ops/fused_lstm.py:27",
             "max_abs_err": worst[torch.bfloat16],
             "max_abs_err_f32": worst[torch.float32],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms,
+            "kernel": "cluster_mma", "generic_kernel_ms": old_ms,
+            "exact_activations_ms": exact_ms,
+            "exact_activations_max_abs_err": exact_err,
+            "kernel_f32": f32_name, "ms_f32": f32_ms,
+            "cluster_fma_ms_f32": f32_fma_ms}
 
 
 # --------------------------------------------------------------- phase 3
@@ -581,11 +714,32 @@ def phase_end_to_end(dev, work_dir, name):
           f"({mbp / wall_cpu:.4f} Mbp/s)", flush=True)
     total = sum(per_kernel.values())
     if total:
+        groups = {"K1": 0.0, "elementwise": 0.0, "other (GEMMs, softmax, "
+                  "copies)": 0.0}
+        for k, ms in per_kernel.items():
+            if "bilstm" in k:
+                groups["K1"] += ms
+            elif "elementwise" in k:
+                groups["elementwise"] += ms
+            else:
+                groups["other (GEMMs, softmax, copies)"] += ms
+        widest = max((ms for k, ms in per_kernel.items()
+                      if "elementwise" in k), default=0.0)
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile of one {runner.batch}-row forward (torch.profiler, "
               f"mean of 3): device busy {total:.2f} ms; " + "; ".join(
+                  f"{k} {ms:.2f} ms ({100 * ms / total:.0f}%)"
+                  for k, ms in groups.items()) + f"; the elementwise kernel "
+              f"with the most time {widest:.2f} ms (one pass over a "
+              f"[{runner.batch}, 33, 1024] bf16 projection takes ~2.9 ms: "
+              f"none is left); top kernels: " + "; ".join(
                   f"{name[:70]} {ms:.2f} ms ({100 * ms / total:.0f}%)"
                   for name, ms in top), flush=True)
+        # the bias adds run inside K1: no elementwise kernel between the
+        # input projections and the recurrence
+        check(groups["elementwise"] < 2.0, "an elementwise pass over the "
+              "input projections is back in the classifier forward: "
+              f"{groups['elementwise']:.2f} ms of elementwise kernels")
     else:
         print("profile: torch.profiler recorded no device time (device "
               "breakdown not measured)", flush=True)
@@ -802,14 +956,27 @@ def k4_bound_ms(B: int, T: int, elem: int):
                                        else "operations")
 
 
-def _max_err(got, want) -> float:
-    return (got.float() - want.float()).abs().max().item()
+def k3_host_us(pack, xp) -> dict:
+    """Host microseconds per K3 launch: the Python wrapper, and the
+    library's C function alone (attribute and occupancy look-up, launch)."""
+    from pepper_tpu_torch.ops import fused_lstm as fl
 
+    B, T, G = xp[0].shape
+    out, gates, cs = fl.bilstm_train_forward_packed(pack, *xp)
+    lib = fl._train_kernel_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (fl.KERNEL_CODES[pack.name], xp[0].data_ptr(), xp[1].data_ptr(),
+            pack.w_hh[0].data_ptr(), pack.w_hh[1].data_ptr(),
+            pack.bias.data_ptr(), out.data_ptr(), gates.data_ptr(),
+            cs.data_ptr(), B, T, G // 4, 0, stream)
 
-def _rel_err(got, want) -> float:
-    """Max abs error relative to the reference's largest entry (at least
-    1): sums of B*T products taken in another order."""
-    return _max_err(got, want) / max(1.0, want.float().abs().max().item())
+    def c_call():
+        check(lib.pepper_bilstm_train_forward(*args) == 0,
+              "K3's C function failed")
+
+    return {"wrapper": host_us(
+                lambda: fl.bilstm_train_forward_packed(pack, *xp)),
+            "c_call": host_us(c_call)}
 
 
 def phase_train_kernels(dev):
@@ -825,8 +992,13 @@ def phase_train_kernels(dev):
     worst = {"k3": {bf16: 0.0, f32: 0.0}, "k4": 0.0, "k4_dwhh": 0.0,
              "grads": 0.0}
     timed = {}
+    # the trainer's batches, a ragged HP-window batch, and where the cluster
+    # kernel's 16-row tiles can go wrong: one row past many tiles, fewer
+    # rows than one tile, one step
     cases = [("trainer", 512, 33, 26, tree), ("trainer", 64, 33, 26, tree),
-             ("hp_ragged", 37, 21, 48, hp_tree)]
+             ("hp_ragged", 37, 21, 48, hp_tree),
+             ("one_past_the_tiles", 513, 3, 26, tree),
+             ("below_one_tile", 5, 33, 26, tree), ("one_step", 37, 1, 26, tree)]
     for label, B, T, F, t in cases:
         x8 = images(rng, B, T, F)
         for dtype in (f32, bf16):
@@ -836,19 +1008,24 @@ def phase_train_kernels(dev):
                 p = params[layer]
                 tag = (f"{label} B={B} T={T} {layer} (F={x.shape[-1]}) "
                        f"{str(dtype)[6:]}")
-                xp_f, xp_b = fl.input_projections(p, x)
                 w_f, w_b = p["weight_hh_l0"], p["weight_hh_l0_reverse"]
-                got = fl.bilstm_train_forward_kernel(xp_f, xp_b, w_f.t(),
-                                                     w_b.t())
+                name = fl.select_kernel(B, T, H, dtype, residuals=True)
+                pack = fl.packed_layer(p, name)
+                xp = fl.packed_projections(pack, x)
+                got = fl.bilstm_train_forward_packed(pack, *xp)
+                again = fl.bilstm_train_forward_packed(pack, *xp)
                 torch.cuda.synchronize()
-                want = fl.bilstm_train_forward_plain(xp_f, xp_b, w_f.t(),
-                                                     w_b.t())
+                raw = fl.raw_projections(p, x)
+                want = fl.bilstm_train_forward_plain(*raw, *_layer_args(p))
                 check(all(bool(torch.isfinite(g.float()).all())
                           for g in got), f"K3 non-finite output ({tag})")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K3 is not bit-identical across two calls ({tag})")
                 errs = [_max_err(g, w) for g, w in zip(got, want)]
-                print(f"K3 {tag}: max_abs_err out {errs[0]:.3e} gates "
+                print(f"K3 {name} {tag}: max_abs_err out {errs[0]:.3e} gates "
                       f"{errs[1]:.3e} cs {errs[2]:.3e} (tolerance "
-                      f"{fwd_tol[dtype]:g})", flush=True)
+                      f"{fwd_tol[dtype]:g}); two calls bit-identical",
+                      flush=True)
                 check(max(errs) <= fwd_tol[dtype], f"K3 disagrees with its "
                       f"plain version: {errs} ({tag})")
                 worst["k3"][dtype] = max(worst["k3"][dtype], *errs)
@@ -903,23 +1080,33 @@ def phase_train_kernels(dev):
                       f"disagree: {rel} ({tag})")
                 worst["grads"] = max(worst["grads"], rel[top])
                 if label == "trainer" and layer == "encoder":
-                    timed[B] = (xp_f, xp_b, w_f, w_b, gout, gates, cs, out)
+                    timed[B] = (p, x, pack, xp, raw, w_f, w_b, gout, gates,
+                                cs, out)
                 x = x_next
 
     rows = {}
     for B in (64, 512):
-        xp_f, xp_b, w_f, w_b, gout, gates, cs, out = timed[B]
-        T = xp_f.shape[1]
+        p, x, pack, xp, raw, w_f, w_b, gout, gates, cs, out = timed[B]
+        T = x.shape[1]
         lstm = torch.nn.LSTM(26, H, batch_first=True,
                              bidirectional=True).to(dev)
         lstm.flatten_parameters()
-        x = torch.from_numpy(images(rng, B, T, 26)).to(dev, f32)
         lib_out = lstm(x)[0]
+        # the generic kernel (the only K3 before the cluster kernel), on the
+        # same raw projections in its own column order
+        old_pack = fl.packed_layer(p, "generic")
+        old_xp = fl.packed_projections(old_pack, x)
+        runs = {"cluster_fma": [], "generic": []}
+        for name, pk, xs in (("generic", old_pack, old_xp),
+                             ("cluster_fma", pack, xp),
+                             ("cluster_fma", pack, xp),
+                             ("generic", old_pack, old_xp)):
+            runs[name].append(median_ms(
+                lambda: fl.bilstm_train_forward_packed(pk, *xs)))
         row = {
-            "k3": median_ms(lambda: fl.bilstm_train_forward_kernel(
-                xp_f, xp_b, w_f.t(), w_b.t())),
+            "k3": min(runs["cluster_fma"]), "k3_generic": min(runs["generic"]),
             "k3_plain": median_ms(lambda: fl.bilstm_train_forward_plain(
-                xp_f, xp_b, w_f.t(), w_b.t())),
+                *raw, *_layer_args(p))),
             "k4": median_ms(lambda: fl.bilstm_train_backward_kernel(
                 gout, gates, cs, out, w_f, w_b)),
             "k4_plain": median_ms(lambda: fl.bilstm_train_backward_plain(
@@ -932,7 +1119,11 @@ def phase_train_kernels(dev):
         row["k4_bound"], row["k4_by"] = k4_bound_ms(B, T, 4)
         rows[B] = row
         print(f"K3 timing B={B} T={T} H={H} f32 (median of 10, CUDA "
-              f"events): kernel_ms {row['k3']:.4f} plain_ms "
+              f"events; kernels timed generic, cluster_fma, cluster_fma, "
+              f"generic, the smaller median of each): kernel_ms "
+              f"{row['k3']:.4f} (cluster_fma; {runs['cluster_fma']}) "
+              f"generic_kernel_ms {row['k3_generic']:.4f} "
+              f"({runs['generic']}) plain_ms "
               f"{row['k3_plain']:.3f} bound_ms {row['k3_bound']:.4f} "
               f"({row['k3_by']}, FP32 peak) library_ms {row['lib_fwd']:.4f} "
               f"(nn.LSTM(26, {H}) f32 forward with grad enabled, cuDNN, "
@@ -943,12 +1134,32 @@ def phase_train_kernels(dev):
               f"({row['k4_by']}, FP32 peak) library_ms {row['lib_bwd']:.4f} "
               f"(nn.LSTM(26, {H}) f32 backward, cuDNN, incl. its input "
               f"projection's gradients)", flush=True)
+    # where select_kernel hands K3 (and K1 in f32) from the FMA cluster kernel
+    # to the generic one: both at 1024 rows, past the 640-row threshold
+    p = timed[512][0]
+    x = torch.from_numpy(images(rng, 1024)).to(dev, f32)
+    cross = {}
+    for name in ("generic", "cluster_fma"):
+        pk = fl.packed_layer(p, name)
+        xs = fl.packed_projections(pk, x)
+        cross[name] = median_ms(
+            lambda: fl.bilstm_train_forward_packed(pk, *xs))
+    print(f"K3 timing B=1024 T=33 H={H} f32 (median of 10): "
+          f"{fl.select_kernel(1024, 33, H, f32, residuals=True)} (selected) "
+          f"{cross['generic']:.4f} ms, cluster_fma {cross['cluster_fma']:.4f} "
+          f"ms", flush=True)
     per_kernel = device_breakdown(lambda: fl.bilstm_train_backward_kernel(
-        *timed[512][4:], *timed[512][2:4]))
+        *timed[512][7:], *timed[512][5:7]))
     if per_kernel:
         print("K4 B=512 by kernel (torch.profiler, mean of 3): " + "; ".join(
             f"{k[:60]} {ms:.4f} ms" for k, ms in sorted(
                 per_kernel.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+    host = k3_host_us(timed[64][2], timed[64][3])
+    print(f"K3 host time per launch B=64 T=33 H={H} f32 (mean of 200 "
+          f"launches enqueued back to back): wrapper "
+          f"{host['wrapper']:.1f} us, of which the library's C function "
+          f"{host['c_call']:.1f} us; the kernel runs {rows[64]['k3']:.4f} ms",
+          flush=True)
     main_b, big = rows[64], rows[512]
     k3 = {"name": "K3 fused_bilstm_train forward", "route": "cuda",
           "source": "pepper_tpu_torch/csrc/fused_lstm_train.cu",
@@ -958,6 +1169,12 @@ def phase_train_kernels(dev):
           "ms": main_b["k3"], "plain_ms": main_b["k3_plain"],
           "bound_ms": main_b["k3_bound"], "bound_by": main_b["k3_by"],
           "library_ms": main_b["lib_fwd"], "shape": "B=64 T=33 H=256 f32",
+          "kernel": "cluster_fma", "generic_kernel_ms": main_b["k3_generic"],
+          "host_us_per_launch": host["wrapper"],
+          "host_us_per_c_call": host["c_call"],
+          "generic_kernel_ms_b512": big["k3_generic"],
+          "generic_kernel_ms_b1024": cross["generic"],
+          "cluster_fma_ms_b1024": cross["cluster_fma"],
           "ms_b512": big["k3"], "plain_ms_b512": big["k3_plain"],
           "bound_ms_b512": big["k3_bound"], "library_ms_b512": big["lib_fwd"]}
     k4 = {"name": "K4 fused_bilstm_train backward", "route": "cuda",
@@ -1177,7 +1394,7 @@ def phase_trainer(dev, work_dir, name):
                 groups["K4 recurrence"] += ms
             elif "bilstm_dwhh_kernel" in k:
                 groups["K4 dW_hh"] += ms
-            elif "bilstm_kernel" in k:
+            elif "bilstm_cluster_fma_kernel" in k or "bilstm_kernel" in k:
                 groups["K3"] += ms
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile of one train step at batch {TRAIN_BATCH} "

@@ -1,7 +1,17 @@
 // Device code shared by the biLSTM kernels: fused_lstm.cu (K1, inference)
 // and fused_lstm_train.cu (K3, the residual-saving forward, and K4, the
-// backward). The recurrence itself is one template: K1 instantiates it
-// without residuals, K3 with them, so the two forwards cannot drift apart.
+// backward): scalar helpers, the bias add with the plain version's rounding,
+// and the generic recurrence, the kernel for the shapes the cluster kernels
+// (fused_lstm_cluster.cuh, fused_lstm_mma.cuh) do not take. Each recurrence
+// is one template: K1 instantiates it without residuals, K3 with them, so
+// the two forwards cannot drift apart.
+//
+// The generic recurrence replaces pepper_tpu/ops/fused_lstm.py::
+// _bilstm_step_kernel and ::_bilstm_train_fwd_kernel for any hidden size up
+// to 256. One block owns 16 batch rows and all 4H gate columns of one
+// direction; W_hh^T does not fit its shared memory, so every step streams
+// it from L2, and the product runs as f32 FMAs. It is bound by the latency
+// of that stream (a step takes the same time for 8 blocks as for 64).
 
 #pragma once
 
@@ -45,11 +55,22 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// xp + b_ih + b_hh with the plain version's rounding: each sum is rounded
+// to T before the next (in bf16 round(round(xp + b_ih) + b_hh), computed in
+// f32 as torch computes a bf16 add), then widened to f32.
+template <typename T>
+__device__ __forceinline__ float add_biases(float xp, float b_ih, float b_hh) {
+  const float first = to_float(from_float<T>(xp + b_ih));
+  return to_float(from_float<T>(first + b_hh));
+}
+
 // The biLSTM recurrence, zero initial state.
 // grid (ceil(B / kBT), 2 directions), block H threads, dynamic shared
 // memory 2 * H * kBT floats.
-// xp_*:  [B, T, 4H] (gate order i, f, g, o; biases folded in)
-// w_*:   [H, 4H] permuted W_hh^T: column 4j+q holds gate q of hidden unit j
+// xp_*:  [B, T, 4H] raw input projections, column 4j+q = gate q (i, f, g,
+//        o) of hidden unit j
+// w_*:   [H, 4H] W_hh^T in the same column order
+// bias:  [2 directions][b_ih, b_hh][4H] in the same column order
 // out:   [B, T, 2H]; direction d writes columns [d*H, (d+1)*H)
 // With kResiduals (K3) each step also stores, at the original time index,
 // gates: [2, B, T, 4H] f32, the activated gates i, f, g, o (gate-major)
@@ -58,7 +79,8 @@ template <typename T, bool kResiduals>
 __global__ void __launch_bounds__(kMaxH, kResiduals ? 1 : 2)
 bilstm_kernel(const T* __restrict__ xp_f, const T* __restrict__ xp_b,
               const T* __restrict__ w_f, const T* __restrict__ w_b,
-              T* __restrict__ out, float* __restrict__ gates,
+              const T* __restrict__ bias, T* __restrict__ out,
+              float* __restrict__ gates,
               float* __restrict__ cs, int B, int steps, int H) {
   extern __shared__ float h_smem[];        // [2][H][kBT], h_{t-1} as f32
   const int dir = blockIdx.y;
@@ -69,6 +91,9 @@ bilstm_kernel(const T* __restrict__ xp_f, const T* __restrict__ xp_b,
   const int G = 4 * H;
 
   for (int i = j; i < H * kBT; i += blockDim.x) h_smem[i] = 0.0f;
+  float b_ih[4], b_hh[4];
+  load4(bias + (size_t)(2 * dir) * G + 4 * j, b_ih);
+  load4(bias + (size_t)(2 * dir + 1) * G + 4 * j, b_hh);
   float c[kBT];
 #pragma unroll
   for (int r = 0; r < kBT; ++r) c[r] = 0.0f;
@@ -109,15 +134,16 @@ bilstm_kernel(const T* __restrict__ xp_f, const T* __restrict__ xp_b,
       const int b = b0 + r;
       float h_new = 0.0f;
       if (b < B) {
-        const T* __restrict__ xr = xp + ((size_t)b * steps + t) * G;
-        const float pi = to_float(xr[j]) + acc[r][0];
-        const float pf = to_float(xr[H + j]) + acc[r][1];
-        const float pg = to_float(xr[2 * H + j]) + acc[r][2];
-        const float po = to_float(xr[3 * H + j]) + acc[r][3];
+        float xv[4];
+        load4(xp + ((size_t)b * steps + t) * G + 4 * j, xv);
+        const float pi = add_biases<T>(xv[0], b_ih[0], b_hh[0]) + acc[r][0];
+        const float pf = add_biases<T>(xv[1], b_ih[1], b_hh[1]) + acc[r][1];
+        const float pg = add_biases<T>(xv[2], b_ih[2], b_hh[2]) + acc[r][2];
+        const float po = add_biases<T>(xv[3], b_ih[3], b_hh[3]) + acc[r][3];
         T h;
         // K1 keeps the activations inside the cell update: written out as
-        // four named gates first (as K3 must, to store them) it ran 11%
-        // slower on the H100 (19.1 against 17.2 ms at B=16384, bf16).
+        // four named gates first (as K3 must, to store them) this kernel
+        // ran 11% slower on the H100 (19.1 against 17.2 ms at B=16384, bf16).
         if constexpr (kResiduals) {
           const float gi = sigmoid(pi), gf = sigmoid(pf), gg = tanhf(pg),
                       go = sigmoid(po);

@@ -2,9 +2,13 @@
 // bound to Python through a plain C interface (ctypes).
 //
 // K3 replaces pepper_tpu/ops/fused_lstm.py::_bilstm_train_fwd_kernel: the
-// inference recurrence (the template in fused_lstm_common.cuh, shared with
-// K1) that also stores, per step and direction, the activated gates
-// [i, f, g, o] and the updated cell state in f32 at the original time index.
+// inference recurrence that also stores, per step and direction, the
+// activated gates [i, f, g, o] and the updated cell state in f32 at the
+// original time index. For hidden sizes 64, 128 and 256 it is the cluster
+// kernel of fused_lstm_cluster.cuh (W_hh^T resident in a cluster's shared
+// memory, f32 FMAs; the header says what bounds it and what the design does
+// about it), shared with K1 in f32; for other hidden sizes up to 256 the
+// generic kernel of fused_lstm_common.cuh.
 //
 // K4 replaces pepper_tpu/ops/fused_lstm.py::_bilstm_bwd_kernel, in two
 // kernels launched back to back:
@@ -25,10 +29,7 @@
 // (0.10 ms); K4 does 35.4 GFLOP in its two products (0.53 ms) against
 // ~0.42 GB, so operations bound both.
 //
-// What the design does about it (the simple first version):
-// - K3 keeps K1's block: 16 batch rows x all 4H gate columns of one
-//   direction, thread j owns unit j's four gates, W_hh^T streamed from L2
-//   every step, the ragged batch edge masked.
+// What K4's design does about it (the simple first version):
 // - In the backward thread j can rebuild unit j's dgates from the saved
 //   gates, c_t, c_prev and its own dc register, but dh[b, j] contracts over
 //   all 4H columns: the tile's dgates go through shared memory (64 KiB at
@@ -44,7 +45,7 @@
 // - Both products run as f32 FMAs; tensor cores (TF32 would change the
 //   trainer's numerics, bf16 more so) are left for a later change.
 
-#include "fused_lstm_common.cuh"
+#include "fused_lstm_cluster.cuh"   // includes the common header
 
 namespace {
 
@@ -237,15 +238,23 @@ bilstm_dwhh_kernel(const float* __restrict__ dxp, const T* __restrict__ out,
 }
 
 template <typename T>
-int launch_forward(const void* xp_f, const void* xp_b, const void* w_f,
-                   const void* w_b, void* out, float* gates, float* cs, int B,
-                   int steps, int H, cudaStream_t stream) {
+int launch_forward(int kernel, const void* xp_f, const void* xp_b,
+                   const void* w_f, const void* w_b, const void* bias,
+                   void* out, float* gates, float* cs, int B, int steps,
+                   int H, cudaStream_t stream) {
+  if (kernel == 1) {
+    if (!cluster_hidden_ok(H)) return 1000;
+    return launch_cluster_fma<T, true>(xp_f, xp_b, w_f, w_b, bias, out, gates,
+                                       cs, B, steps, H, stream);
+  }
+  if (kernel != 0) return 1000;
   const dim3 grid((B + kBT - 1) / kBT, 2);
   const size_t smem = 2 * (size_t)H * kBT * sizeof(float);
   bilstm_kernel<T, true><<<grid, H, smem, stream>>>(
       static_cast<const T*>(xp_f), static_cast<const T*>(xp_b),
       static_cast<const T*>(w_f), static_cast<const T*>(w_b),
-      static_cast<T*>(out), gates, cs, B, steps, H);
+      static_cast<const T*>(bias), static_cast<T*>(out), gates, cs, B, steps,
+      H);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -280,11 +289,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (xp, w, out, gout); gates, cs, whh, dxp
 // and dwhh are float32. Each returns cudaGetLastError() after its launches
-// (0 on success); 1000 for arguments the kernels do not take.
+// (0 on success); 1000 for arguments the kernels do not take, 1001 where the
+// card cannot hold one cluster of the cluster kernel.
 
-// K3. w_*: permuted W_hh^T as for pepper_bilstm_forward.
-int pepper_bilstm_train_forward(const void* xp_f, const void* xp_b,
-                                const void* w_f, const void* w_b, void* out,
+// K3. kernel: 0 generic, 1 cluster FMA; xp_*, w_* and bias as for
+// pepper_bilstm_forward with the same kernel.
+int pepper_bilstm_train_forward(int kernel, const void* xp_f,
+                                const void* xp_b, const void* w_f,
+                                const void* w_b, const void* bias, void* out,
                                 void* gates, void* cs, int B, int steps,
                                 int H, int dtype, void* stream) {
   if (bad_shape(B, steps, H)) return 1000;
@@ -292,11 +304,11 @@ int pepper_bilstm_train_forward(const void* xp_f, const void* xp_b,
   float* ga = static_cast<float*>(gates);
   float* c = static_cast<float*>(cs);
   if (dtype == 0)
-    return launch_forward<float>(xp_f, xp_b, w_f, w_b, out, ga, c, B, steps,
-                                 H, s);
+    return launch_forward<float>(kernel, xp_f, xp_b, w_f, w_b, bias, out, ga,
+                                 c, B, steps, H, s);
   if (dtype == 1)
-    return launch_forward<__nv_bfloat16>(xp_f, xp_b, w_f, w_b, out, ga, c, B,
-                                         steps, H, s);
+    return launch_forward<__nv_bfloat16>(kernel, xp_f, xp_b, w_f, w_b, bias,
+                                         out, ga, c, B, steps, H, s);
   return 1000;
 }
 

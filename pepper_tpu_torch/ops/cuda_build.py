@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -59,7 +59,7 @@ def build_log(name: str) -> str:
         return fh.read()
 
 
-def _build(name: str, source: str) -> float:
+def _build(name: str, source: str, defines: Sequence[str]) -> float:
     lib = library_path(name)
     inputs = [source] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
     if (os.path.isfile(lib) and os.path.getmtime(lib)
@@ -67,7 +67,8 @@ def _build(name: str, source: str) -> float:
         return 0.0
     t0 = time.time()
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc()] + NVCC_FLAGS + ["-o", tmp, source]
+    cmd = ([nvcc()] + NVCC_FLAGS + [f"-D{d}" for d in defines]
+           + ["-o", tmp, source])
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     with open(os.path.join(BUILD_DIR, f"lib{name}.build.log"), "w") as fh:
         fh.write(proc.stdout + proc.stderr)
@@ -78,19 +79,22 @@ def _build(name: str, source: str) -> float:
     return time.time() - t0
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """The CDLL built from csrc/<name>.cu, building it first if needed."""
+def load_library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The CDLL built from csrc/<name>.cu, building it first if needed.
+    With `defines` (preprocessor macros) it is a variant of that source,
+    built beside it as lib<name>_<macros>.so."""
+    source = os.path.join(CSRC_DIR, f"{name}.cu")
+    name = "_".join([name] + [d.lower() for d in defines])
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _libs:
             return _libs[name]
-        source = os.path.join(CSRC_DIR, f"{name}.cu")
         os.makedirs(BUILD_DIR, exist_ok=True)
         with open(os.path.join(BUILD_DIR, f"lib{name}.lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
-                build_seconds[name] = _build(name, source)
+                build_seconds[name] = _build(name, source, defines)
             finally:
                 fcntl.flock(lock, fcntl.LOCK_UN)
         _libs[name] = ctypes.CDLL(library_path(name))

@@ -3,42 +3,72 @@ training.
 
 The recurrent loop of the variant classifier's biLSTM is the serial part of
 the device forward: per step a [B,H] @ [H,4H] product plus the gate
-nonlinearities. The input projection x @ W_ih^T for all timesteps (both
-biases folded in) is one batched `torch.matmul` per direction outside the
-recurrence, as in the JAX package (pepper_tpu/ops/fused_lstm.py:75-80).
+nonlinearities. The input projection x @ W_ih^T for all timesteps is one
+batched `torch.matmul` per direction outside the recurrence, as in the JAX
+package (pepper_tpu/ops/fused_lstm.py:75-80). The two biases are added
+inside the recurrence, each sum rounded to the working dtype, which is the
+function `(x @ W_ih^T + b_ih) + b_hh` computes: no elementwise pass over
+[B,T,4H] runs between the projection and the recurrence.
 
-The recurrence itself is kernel K1, `csrc/fused_lstm.cu`, for CUDA tensors,
-and `bilstm_recurrence_plain` (same rounding points: xp and h in the input
-dtype, c and the gate sums in f32) for CPU tensors. A CUDA tensor always
-launches the kernel or raises; it never takes the plain loop.
+For CUDA tensors the recurrence is kernel K1 (`csrc/fused_lstm.cu`), one of
+three hand-written kernels that `select_kernel` picks from shape and dtype:
+`cluster_mma` (bf16, hidden 64/128/256: W_hh resident in a cluster's shared
+memory, the step product on tensor cores, the gate activations through
+`tanh.approx`), `cluster_fma` (f32 and K3, the
+same hidden sizes, batches up to 640 rows: W_hh^T resident in a cluster's
+shared memory, f32 FMAs) and `generic` (any hidden size up to 256 and any
+batch: W_hh^T streamed from L2 every step).
+Each wants W_hh, the columns of xp (so the rows of W_ih) and the biases in
+its own order; `pack_bilstm` builds that set once per layer and
+`packed_layer` caches it, for those eight tensor objects alone, until one
+is updated in place.
+For CPU tensors the recurrence is `bilstm_recurrence_plain` (same rounding
+points: xp, the bias sums and h in the input dtype, c and the gate sums in
+f32). A CUDA tensor always launches a kernel or raises; it never takes the
+plain loop, and no failed build or launch selects another kernel.
 
 Training (`fused_bilstm_train`, a `torch.autograd.Function`) follows
 pepper_tpu/ops/fused_lstm.py:232-373. Its forward is kernel K3 (the same
 recurrence, which also stores the activated gates and the cell state of
-every step in f32), its backward kernel K4 (reverse-time BPTT with a
-(dh, dc) carry, emitting dgates as dxp, plus dW_hh), both in
-`csrc/fused_lstm_train.cu`; the gradients of W_ih, of the four biases and
-of x are batched `torch.matmul`s and sums outside the kernel. For CPU
-tensors the forward is `bilstm_train_forward_plain` and the backward
-`bilstm_train_backward_plain`, an explicit reverse-time loop with K4's
-formulas (not autograd through the forward loop), so the CPU tests run the
-wiring the card runs.
+every step in f32; `cluster_fma` or `generic`), its backward kernel K4
+(reverse-time BPTT with a (dh, dc) carry, emitting dgates as dxp, plus
+dW_hh), both in `csrc/fused_lstm_train.cu`; the gradients of W_ih, of the
+four biases and of x are batched `torch.matmul`s and sums outside the
+kernel. For CPU tensors the forward is `bilstm_train_forward_plain` and the
+backward `bilstm_train_backward_plain`, an explicit reverse-time loop with
+K4's formulas (not autograd through the forward loop), so the CPU tests run
+the wiring the card runs.
 """
 import ctypes
-from typing import Dict, Tuple
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 # kernel launches made by this process (reset by callers that count a run):
-# K1, K3 (train forward) and K4 (train backward: its two kernels count once)
+# K1, K3 (train forward) and K4 (train backward: its two kernels count once),
+# and the same forward launches by the kernel that ran
 launches = 0
 train_fwd_launches = 0
 train_bwd_launches = 0
+KERNEL_CODES = {"generic": 0, "cluster_fma": 1, "cluster_mma": 2}
+kernel_launches = {name: 0 for name in KERNEL_CODES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CLUSTER_HIDDEN = (64, 128, 256)
+# The FMA cluster kernel runs 16 rows per cluster, 8 clusters per direction
+# at a time, ~0.25 ms a tile at T=33; the generic kernel takes ~1.45 ms for
+# any batch up to 1056 rows (K3) or 2112 (K1). On the H100 they meet between
+# 512 and 1024 rows (1.0 against 1.5 ms, then 2.0 against 1.5 ms).
+_CLUSTER_FMA_MAX_BATCH = 640
+MAX_HIDDEN = 256
 _lib = None
 _train_lib = None
+
+# (b_ih, b_hh) of the forward direction, then of the reverse direction
+Biases = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _train_kernel_lib():
@@ -48,7 +78,8 @@ def _train_kernel_lib():
         lib = load_library("fused_lstm_train")
         lib.pepper_bilstm_train_forward.restype = ctypes.c_int
         lib.pepper_bilstm_train_forward.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
         lib.pepper_bilstm_train_backward.restype = ctypes.c_int
         lib.pepper_bilstm_train_backward.argtypes = (
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -58,25 +89,75 @@ def _train_kernel_lib():
     return _train_lib
 
 
+def load_forward_library(defines=()):
+    """K1's library (a variant of it, built with the macros `defines`),
+    with its C interface declared."""
+    from pepper_tpu_torch.ops.cuda_build import load_library
+    lib = load_library("fused_lstm", defines)
+    lib.pepper_bilstm_forward.restype = ctypes.c_int
+    lib.pepper_bilstm_forward.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+    return lib
+
+
 def _kernel_lib():
     global _lib
     if _lib is None:
-        from pepper_tpu_torch.ops.cuda_build import load_library
-        lib = load_library("fused_lstm")
-        lib.pepper_bilstm_forward.restype = ctypes.c_int
-        lib.pepper_bilstm_forward.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.pepper_bilstm_max_hidden.restype = ctypes.c_int
-        lib.pepper_bilstm_max_hidden.argtypes = []
-        _lib = lib
+        _lib = load_forward_library()
     return _lib
 
 
+def kernel_takes(name: str, H: int, dtype: torch.dtype,
+                 residuals: bool = False) -> bool:
+    """Whether kernel `name` can run a layer of hidden size H in `dtype`
+    (any B and T), storing the step's residuals or not."""
+    if name == "generic":
+        return 1 <= H <= MAX_HIDDEN and not (residuals and H % 4)
+    if name == "cluster_fma":
+        # in bf16 without residuals the tensor-core kernel takes every shape
+        # this one would, so that variant is not built
+        return H in _CLUSTER_HIDDEN and (residuals or dtype == torch.float32)
+    return (name == "cluster_mma" and H in _CLUSTER_HIDDEN
+            and dtype == torch.bfloat16 and not residuals)
+
+
+def select_kernel(B: int, T: int, H: int, dtype: torch.dtype,
+                  residuals: bool = False) -> str:
+    """The kernel that runs the recurrence of a [B,T,4H] layer on the card:
+    a pure function of shape, dtype and whether the step's residuals are
+    stored (K3). Raises for what no kernel takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused biLSTM kernels take float32 or bfloat16, "
+                        f"got {dtype}")
+    if B < 1 or T < 1 or H < 1 or H > MAX_HIDDEN or (residuals and H % 4):
+        raise ValueError(
+            f"fused biLSTM kernels: B={B}, T={T} must be positive and the "
+            f"hidden size {H} at most {MAX_HIDDEN}"
+            + (" and a multiple of 4" if residuals else ""))
+    if kernel_takes("cluster_mma", H, dtype, residuals):
+        return "cluster_mma"
+    if kernel_takes("cluster_fma", H, dtype, residuals) \
+            and B <= _CLUSTER_FMA_MAX_BATCH:
+        return "cluster_fma"
+    return "generic"
+
+
+def _add_biases(xp_f, xp_b, biases: Optional[Biases]):
+    """(xp + b_ih) + b_hh per direction, each sum rounded to xp's dtype."""
+    if biases is None:
+        return xp_f, xp_b
+    return xp_f + biases[0] + biases[1], xp_b + biases[2] + biases[3]
+
+
 def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
-                            whh_t_f: torch.Tensor,
-                            whh_t_b: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1. xp_*: [B,T,4H] (gates i,f,g,o, biases
-    folded in); whh_t_*: [H,4H] (W_hh^T). Returns [B,T,2H] in xp's dtype."""
+                            whh_t_f: torch.Tensor, whh_t_b: torch.Tensor,
+                            biases: Optional[Biases] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1. xp_*: [B,T,4H] raw input projections
+    (gates i,f,g,o); whh_t_*: [H,4H] (W_hh^T); biases: (b_ih, b_hh) of each
+    direction, added here (None: xp has them already). Returns [B,T,2H] in
+    xp's dtype."""
+    xp_f, xp_b = _add_biases(xp_f, xp_b, biases)
     B, T, G = xp_f.shape
     H = G // 4
     dtype = xp_f.dtype
@@ -95,11 +176,117 @@ def bilstm_recurrence_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
     return out
 
 
-def _permute_gates(whh_t: torch.Tensor) -> torch.Tensor:
-    """[H,4H] -> [H,4H] with column 4j+q = gate q of hidden unit j, so one
-    kernel thread reads its unit's four gate weights as one vector."""
-    H = whh_t.shape[0]
-    return whh_t.reshape(H, 4, H).transpose(1, 2).reshape(H, 4 * H)
+# ----------------------------------------------------------------- packing
+def gate_permutations(name: str, H: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xp_order, w_order) of kernel `name`: position p of the kernel's xp
+    columns (so of W_ih's rows and of the biases) holds original gate column
+    xp_order[p] = q*H + u (gate q of i,f,g,o, hidden unit u); row n of the
+    kernel's W_hh holds original row w_order[n].
+
+    `generic` and `cluster_fma`: both 4u + q, so a thread reads its unit's
+    four gates as one vector and a block's 32 units are contiguous.
+    `cluster_mma`: W_hh rows 32*(u//8) + 8q + u%8, so the four 8-column
+    n-blocks of a warp's mma are the four gates of its 8 units and a
+    thread's accumulator fragment holds all four gates of its (row, unit)
+    pairs; xp columns 8*(u//2) + 2q + u%2, the 16 bytes one thread needs per
+    row. Either way block r of a cluster owns a contiguous slice."""
+    if name not in KERNEL_CODES:
+        raise ValueError(f"unknown fused biLSTM kernel {name!r}")
+    p = torch.arange(4 * H)
+    if name != "cluster_mma":
+        order = (p % 4) * H + p // 4
+        return order, order
+    xp_order = ((p % 8) // 2) * H + 2 * (p // 8) + p % 2
+    w_order = ((p % 32) // 8) * H + 8 * (p // 32) + p % 8
+    return xp_order, w_order
+
+
+@dataclass
+class PackedBiLSTM:
+    """One layer's parameters as kernel `name` reads them."""
+    name: str
+    w_ih: Tuple[torch.Tensor, torch.Tensor]   # [4H,F] per direction, rows in
+                                              # xp_order (None if not given)
+    w_hh: Tuple[torch.Tensor, torch.Tensor]   # generic, cluster_fma: [H,4H]
+                                              # W_hh^T; cluster_mma: [4H,H]
+    bias: torch.Tensor                        # [2,2,4H]: direction, (ih, hh)
+    xp_order: torch.Tensor                    # [4H] on the layer's device
+
+    @property
+    def hidden(self) -> int:
+        return self.bias.shape[-1] // 4
+
+
+def pack_weights(name: str, whh_f: torch.Tensor, whh_b: torch.Tensor,
+                 biases: Optional[Biases], w_ih=None) -> PackedBiLSTM:
+    """Pack W_hh [4H,H] of both directions, the four biases (None: zeros)
+    and, where given, W_ih [4H,F] of both directions for kernel `name`."""
+    G, H = whh_f.shape
+    dev, dtype = whh_f.device, whh_f.dtype
+    xp_order, w_order = (o.to(dev) for o in gate_permutations(name, H))
+    if name == "cluster_mma":
+        w_hh = tuple(w[w_order].contiguous() for w in (whh_f, whh_b))
+    else:
+        w_hh = tuple(w[w_order].t().contiguous() for w in (whh_f, whh_b))
+    if biases is None:
+        bias = torch.zeros((2, 2, G), dtype=dtype, device=dev)
+    else:
+        bias = torch.stack([b.to(dtype)[xp_order] for b in biases]).reshape(
+            2, 2, G)
+    if w_ih is not None:
+        w_ih = tuple(w[xp_order].contiguous() for w in w_ih)
+    return PackedBiLSTM(name, w_ih, w_hh, bias, xp_order)
+
+
+def layer_biases(params: Dict[str, torch.Tensor]) -> Biases:
+    return (params["bias_ih_l0"], params["bias_hh_l0"],
+            params["bias_ih_l0_reverse"], params["bias_hh_l0_reverse"])
+
+
+def pack_bilstm(params: Dict[str, torch.Tensor], name: str) -> PackedBiLSTM:
+    """Pack a layer's eight parameter tensors for kernel `name`."""
+    return pack_weights(
+        name, params["weight_hh_l0"], params["weight_hh_l0_reverse"],
+        layer_biases(params),
+        (params["weight_ih_l0"], params["weight_ih_l0_reverse"]))
+
+
+_PARAM_NAMES = tuple(
+    name + sfx for sfx in ("", "_reverse")
+    for name in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0"))
+_PACK_CACHE_SIZE = 16
+# (kernel, id of each parameter tensor) -> (the tensors, their state, pack).
+# An entry holds its eight source tensors, so their ids and their storage
+# cannot pass to another layer while it lives.
+_pack_cache: "OrderedDict[tuple, Tuple[tuple, tuple, PackedBiLSTM]]" = \
+    OrderedDict()
+pack_builds = 0          # packs built by `packed_layer` (its cache misses)
+
+
+def packed_layer(params: Dict[str, torch.Tensor], name: str) -> PackedBiLSTM:
+    """`pack_bilstm`, cached per layer: reused only for the same eight
+    tensor objects, none updated in place since (`_version`, which an
+    optimizer's step bumps) nor given other storage. Inference tensors track
+    no version, so a layer that holds one is packed on every call."""
+    global pack_builds
+    tensors = tuple(params[n] for n in _PARAM_NAMES)
+    if any(t.is_inference() for t in tensors):
+        pack_builds += 1
+        return pack_bilstm(params, name)
+    key = (name,) + tuple(id(t) for t in tensors)
+    state = tuple((t._version, t.data_ptr()) for t in tensors)
+    hit = _pack_cache.get(key)
+    if hit is not None and hit[1] == state \
+            and all(a is b for a, b in zip(hit[0], tensors)):
+        _pack_cache.move_to_end(key)
+        return hit[2]
+    pack = pack_bilstm(params, name)
+    pack_builds += 1
+    _pack_cache[key] = (tensors, state, pack)
+    _pack_cache.move_to_end(key)
+    while len(_pack_cache) > _PACK_CACHE_SIZE:
+        _pack_cache.popitem(last=False)
+    return pack
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -108,68 +295,68 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _check_forward_inputs(what: str, xp_f, xp_b, whh_t_f, whh_t_b) -> None:
+def _check_packed_inputs(what: str, pack: PackedBiLSTM, xp_f, xp_b,
+                         residuals: bool) -> Tuple[int, int, int]:
     """The checks K1 and K3 share: type, device and shapes of xp [B,T,4H]
-    and W_hh^T [H,4H] of both directions."""
+    against the pack, and that the pack's kernel takes them."""
+    if xp_f.dim() != 3 or xp_b.shape != xp_f.shape or xp_f.shape[2] % 4:
+        raise ValueError(f"{what}: bad shapes xp {tuple(xp_f.shape)}"
+                         f"/{tuple(xp_b.shape)}")
     B, T, G = xp_f.shape
     H = G // 4
     dtype = xp_f.dtype
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"{what} takes float32 or bfloat16, got {dtype}")
-    tensors = (xp_f, xp_b, whh_t_f, whh_t_b)
+    tensors = (xp_f, xp_b, pack.w_hh[0], pack.w_hh[1], pack.bias)
     if any(not t.is_cuda or t.device != xp_f.device or t.dtype != dtype
            for t in tensors):
         raise ValueError(f"{what}: all inputs must be CUDA tensors of one "
                          f"device and dtype")
-    if xp_b.shape != xp_f.shape or G != 4 * H \
-            or whh_t_f.shape != (H, G) or whh_t_b.shape != (H, G):
-        raise ValueError(f"{what}: bad shapes xp {tuple(xp_f.shape)}"
-                         f"/{tuple(xp_b.shape)}, W_hh^T {tuple(whh_t_f.shape)}")
+    if pack.hidden != H or pack.w_hh[0].numel() != H * G:
+        raise ValueError(f"{what}: xp {tuple(xp_f.shape)} does not fit the "
+                         f"packed layer of hidden size {pack.hidden}")
+    select_kernel(B, T, H, dtype, residuals)      # raises for a bad shape
+    if not kernel_takes(pack.name, H, dtype, residuals):
+        raise ValueError(f"{what}: kernel {pack.name!r} does not take "
+                         f"B={B}, T={T}, H={H}, {dtype}")
+    return B, T, H
 
 
-def bilstm_recurrence_kernel(xp_f: torch.Tensor, xp_b: torch.Tensor,
-                             whh_t_f: torch.Tensor,
-                             whh_t_b: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the tensors' CUDA device (current stream)."""
+def bilstm_recurrence_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
+                             xp_b: torch.Tensor) -> torch.Tensor:
+    """Launch K1 (the pack's kernel) on the tensors' CUDA device (current
+    stream). xp_*: [B,T,4H] raw projections in the pack's column order."""
     global launches
-    B, T, G = xp_f.shape
-    H = G // 4
-    dtype = xp_f.dtype
-    _check_forward_inputs("fused biLSTM kernel", xp_f, xp_b, whh_t_f, whh_t_b)
+    B, T, H = _check_packed_inputs("fused biLSTM kernel", pack, xp_f, xp_b,
+                                   residuals=False)
     lib = _kernel_lib()
-    if H > lib.pepper_bilstm_max_hidden():
-        raise ValueError(f"fused biLSTM kernel: hidden size {H} exceeds "
-                         f"{lib.pepper_bilstm_max_hidden()}")
     xp_f, xp_b = _aligned(xp_f), _aligned(xp_b)
-    w_f, w_b = _permute_gates(whh_t_f), _permute_gates(whh_t_b)
-    out = torch.empty((B, T, 2 * H), dtype=dtype, device=xp_f.device)
+    out = torch.empty((B, T, 2 * H), dtype=xp_f.dtype, device=xp_f.device)
     with torch.cuda.device(xp_f.device):
         stream = torch.cuda.current_stream(xp_f.device).cuda_stream
         err = lib.pepper_bilstm_forward(
-            xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            out.data_ptr(), B, T, H, _DTYPE_CODES[dtype], stream)
+            KERNEL_CODES[pack.name], xp_f.data_ptr(), xp_b.data_ptr(),
+            pack.w_hh[0].data_ptr(), pack.w_hh[1].data_ptr(),
+            pack.bias.data_ptr(), out.data_ptr(), B, T, H,
+            _DTYPE_CODES[xp_f.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"fused biLSTM kernel launch failed: error {err}")
+        raise RuntimeError(f"fused biLSTM kernel {pack.name!r} launch "
+                           f"failed: error {err}")
     launches += 1
+    kernel_launches[pack.name] += 1
     return out
 
 
-def bilstm_recurrence(xp_f: torch.Tensor, xp_b: torch.Tensor,
-                      whh_t_f: torch.Tensor,
-                      whh_t_b: torch.Tensor) -> torch.Tensor:
-    """K1 for CUDA tensors, its plain version for CPU tensors."""
-    if xp_f.is_cuda:
-        return bilstm_recurrence_kernel(xp_f, xp_b, whh_t_f, whh_t_b)
-    return bilstm_recurrence_plain(xp_f, xp_b, whh_t_f, whh_t_b)
+def raw_projections(params: Dict[str, torch.Tensor], x: torch.Tensor):
+    """(xp_f, xp_b): x @ W_ih^T per direction, [B,T,4H], no bias."""
+    return (torch.matmul(x, params["weight_ih_l0"].t()),
+            torch.matmul(x, params["weight_ih_l0_reverse"].t()))
 
 
-def input_projections(params: Dict[str, torch.Tensor], x: torch.Tensor):
-    """(xp_f, xp_b): x @ W_ih^T + b_ih + b_hh per direction, [B,T,4H]."""
-    xp_f = (torch.matmul(x, params["weight_ih_l0"].t())
-            + params["bias_ih_l0"] + params["bias_hh_l0"])
-    xp_b = (torch.matmul(x, params["weight_ih_l0_reverse"].t())
-            + params["bias_ih_l0_reverse"] + params["bias_hh_l0_reverse"])
-    return xp_f, xp_b
+def packed_projections(pack: PackedBiLSTM, x: torch.Tensor):
+    """`raw_projections` in the pack's column order."""
+    return (torch.matmul(x, pack.w_ih[0].t()),
+            torch.matmul(x, pack.w_ih[1].t()))
 
 
 def fused_bilstm(params: Dict[str, torch.Tensor],
@@ -177,20 +364,28 @@ def fused_bilstm(params: Dict[str, torch.Tensor],
     """Bidirectional LSTM with zero initial state, drop-in for rnn.lstm.
 
     x: [B, T, F] -> [B, T, 2H] (forward || backward), in x's dtype."""
-    xp_f, xp_b = input_projections(params, x)
-    return bilstm_recurrence(xp_f, xp_b, params["weight_hh_l0"].t(),
-                             params["weight_hh_l0_reverse"].t())
+    if x.is_cuda:
+        B, T, _ = x.shape
+        H = params["weight_hh_l0"].shape[1]
+        pack = packed_layer(params, select_kernel(B, T, H, x.dtype))
+        return bilstm_recurrence_packed(pack, *packed_projections(pack, x))
+    xp_f, xp_b = raw_projections(params, x)
+    return bilstm_recurrence_plain(
+        xp_f, xp_b, params["weight_hh_l0"].t(),
+        params["weight_hh_l0_reverse"].t(), layer_biases(params))
 
 
 # ---------------------------------------------------------------- training
 def bilstm_train_forward_plain(xp_f: torch.Tensor, xp_b: torch.Tensor,
-                               whh_t_f: torch.Tensor, whh_t_b: torch.Tensor
+                               whh_t_f: torch.Tensor, whh_t_b: torch.Tensor,
+                               biases: Optional[Biases] = None
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
-    """Plain PyTorch version of K3: K1's recurrence, which also keeps every
-    step's residuals at the original time index. Returns (out [B,T,2H] in
-    xp's dtype, gates [2,B,T,4H] f32: activated i,f,g,o per direction,
-    cs [2,B,T,H] f32: the updated cell state)."""
+    """Plain PyTorch version of K3: K1's recurrence (same arguments), which
+    also keeps every step's residuals at the original time index. Returns
+    (out [B,T,2H] in xp's dtype, gates [2,B,T,4H] f32: activated i,f,g,o per
+    direction, cs [2,B,T,H] f32: the updated cell state)."""
+    xp_f, xp_b = _add_biases(xp_f, xp_b, biases)
     B, T, G = xp_f.shape
     H = G // 4
     dtype, dev = xp_f.dtype, xp_f.device
@@ -267,34 +462,34 @@ def _check_train_hidden(lib, H: int) -> None:
             f"multiple of 4, at most {lib.pepper_bilstm_train_max_hidden()}")
 
 
-def bilstm_train_forward_kernel(xp_f: torch.Tensor, xp_b: torch.Tensor,
-                                whh_t_f: torch.Tensor, whh_t_b: torch.Tensor
+def bilstm_train_forward_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
+                                xp_b: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
-    """Launch K3 on the tensors' CUDA device (current stream)."""
+    """Launch K3 (the pack's kernel) on the tensors' CUDA device (current
+    stream). xp_*: [B,T,4H] raw projections in the pack's column order; the
+    residuals come back in the original gate order."""
     global train_fwd_launches
-    B, T, G = xp_f.shape
-    H = G // 4
+    what = "fused biLSTM training kernel"
+    B, T, H = _check_packed_inputs(what, pack, xp_f, xp_b, residuals=True)
     dtype, dev = xp_f.dtype, xp_f.device
-    _check_forward_inputs("fused biLSTM training kernel", xp_f, xp_b,
-                          whh_t_f, whh_t_b)
     lib = _train_kernel_lib()
-    _check_train_hidden(lib, H)
     xp_f, xp_b = _aligned(xp_f), _aligned(xp_b)
-    w_f, w_b = _permute_gates(whh_t_f), _permute_gates(whh_t_b)
     out = torch.empty((B, T, 2 * H), dtype=dtype, device=dev)
-    gates = torch.empty((2, B, T, G), dtype=torch.float32, device=dev)
+    gates = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=dev)
     cs = torch.empty((2, B, T, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pepper_bilstm_train_forward(
-            xp_f.data_ptr(), xp_b.data_ptr(), w_f.data_ptr(), w_b.data_ptr(),
-            out.data_ptr(), gates.data_ptr(), cs.data_ptr(), B, T, H,
-            _DTYPE_CODES[dtype], stream)
+            KERNEL_CODES[pack.name], xp_f.data_ptr(), xp_b.data_ptr(),
+            pack.w_hh[0].data_ptr(), pack.w_hh[1].data_ptr(),
+            pack.bias.data_ptr(), out.data_ptr(), gates.data_ptr(),
+            cs.data_ptr(), B, T, H, _DTYPE_CODES[dtype], stream)
     if err != 0:
-        raise RuntimeError(f"fused biLSTM training forward launch failed: "
-                           f"error {err}")
+        raise RuntimeError(f"fused biLSTM training forward {pack.name!r} "
+                           f"launch failed: error {err}")
     train_fwd_launches += 1
+    kernel_launches[pack.name] += 1
     return out, gates, cs
 
 
@@ -344,13 +539,6 @@ def bilstm_train_backward_kernel(gout: torch.Tensor, gates: torch.Tensor,
     return dxp, dwhh
 
 
-def bilstm_train_forward(xp_f, xp_b, whh_t_f, whh_t_b):
-    """K3 for CUDA tensors, its plain version for CPU tensors."""
-    if xp_f.is_cuda:
-        return bilstm_train_forward_kernel(xp_f, xp_b, whh_t_f, whh_t_b)
-    return bilstm_train_forward_plain(xp_f, xp_b, whh_t_f, whh_t_b)
-
-
 def bilstm_train_backward(gout, gates, cs, out, whh_f, whh_b):
     """K4 for CUDA tensors, its plain version for CPU tensors."""
     if out.is_cuda:
@@ -359,21 +547,23 @@ def bilstm_train_backward(gout, gates, cs, out, whh_f, whh_b):
     return bilstm_train_backward_plain(gout, gates, cs, out, whh_f, whh_b)
 
 
-_TRAIN_PARAM_NAMES = tuple(
-    name + sfx for sfx in ("", "_reverse")
-    for name in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0"))
-
-
 class _FusedBiLSTMTrain(torch.autograd.Function):
-    """x and the eight parameters (in _TRAIN_PARAM_NAMES order) -> out."""
+    """x and the eight parameters (in _PARAM_NAMES order) -> out."""
 
     @staticmethod
     def forward(ctx, x, *weights):
-        params = dict(zip(_TRAIN_PARAM_NAMES, weights))
-        xp_f, xp_b = input_projections(params, x)
-        out, gates, cs = bilstm_train_forward(
-            xp_f, xp_b, params["weight_hh_l0"].t(),
-            params["weight_hh_l0_reverse"].t())
+        params = dict(zip(_PARAM_NAMES, weights))
+        if x.is_cuda:
+            B, T, _ = x.shape
+            H = params["weight_hh_l0"].shape[1]
+            pack = packed_layer(params, select_kernel(B, T, H, x.dtype,
+                                                      residuals=True))
+            out, gates, cs = bilstm_train_forward_packed(
+                pack, *packed_projections(pack, x))
+        else:
+            out, gates, cs = bilstm_train_forward_plain(
+                *raw_projections(params, x), params["weight_hh_l0"].t(),
+                params["weight_hh_l0_reverse"].t(), layer_biases(params))
         ctx.save_for_backward(x, out, gates, cs, *weights)
         return out
 
@@ -381,7 +571,7 @@ class _FusedBiLSTMTrain(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gout):
         x, out, gates, cs, *weights = ctx.saved_tensors
-        params = dict(zip(_TRAIN_PARAM_NAMES, weights))
+        params = dict(zip(_PARAM_NAMES, weights))
         dxp, dwhh = bilstm_train_backward(
             gout, gates, cs, out, params["weight_hh_l0"],
             params["weight_hh_l0_reverse"])
@@ -401,7 +591,7 @@ class _FusedBiLSTMTrain(torch.autograd.Function):
         if dx is not None:
             dx = dx.reshape(x.shape).to(x.dtype)
         return (dx,) + tuple(grads[n].to(params[n].dtype)
-                             for n in _TRAIN_PARAM_NAMES)
+                             for n in _PARAM_NAMES)
 
 
 def fused_bilstm_train(params: Dict[str, torch.Tensor],
@@ -410,4 +600,4 @@ def fused_bilstm_train(params: Dict[str, torch.Tensor],
     rnn.lstm (zero initial state, [B,T,F] -> [B,T,2H]), differentiable in
     every parameter and in x."""
     return _FusedBiLSTMTrain.apply(
-        x, *(params[name] for name in _TRAIN_PARAM_NAMES))
+        x, *(params[name] for name in _PARAM_NAMES))

@@ -121,9 +121,9 @@ def test_forward_and_residuals_match_jax_pallas_interpret(B, T, F, H):
         want_out, res = jax_fl._train_fwd(_to_jax(params), jnp.asarray(x))
     out_f, out_b, gat_f, gat_b, cs_f, cs_b = (np.asarray(r) for r in res)
     pt = _to_torch(params)
-    xp_f, xp_b = fl.input_projections(pt, torch.from_numpy(x))
-    out, gates, cs = fl.bilstm_train_forward(
-        xp_f, xp_b, pt["weight_hh_l0"].t(), pt["weight_hh_l0_reverse"].t())
+    out, gates, cs = fl.bilstm_train_forward_plain(
+        *fl.raw_projections(pt, torch.from_numpy(x)), pt["weight_hh_l0"].t(),
+        pt["weight_hh_l0_reverse"].t(), fl.layer_biases(pt))
     assert out.shape == (B, T, 2 * H)
     assert gates.shape == (2, B, T, 4 * H) and cs.shape == (2, B, T, H)
     np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=2e-4)
@@ -192,9 +192,9 @@ def test_first_step_is_masked_with_one_timestep():
     cell state is i*g."""
     params, x, weight = _case(7, 4, 1, 6, 16)
     pt = _to_torch(params)
-    xp_f, xp_b = fl.input_projections(pt, torch.from_numpy(x))
-    out, gates, cs = fl.bilstm_train_forward(
-        xp_f, xp_b, pt["weight_hh_l0"].t(), pt["weight_hh_l0_reverse"].t())
+    out, gates, cs = fl.bilstm_train_forward_plain(
+        *fl.raw_projections(pt, torch.from_numpy(x)), pt["weight_hh_l0"].t(),
+        pt["weight_hh_l0_reverse"].t(), fl.layer_biases(pt))
     i, f, g, o = gates.chunk(4, dim=-1)
     assert torch.allclose(cs, i * g)
     dxp, dwhh = fl.bilstm_train_backward(
@@ -229,10 +229,103 @@ def test_cpu_tensors_never_launch_and_the_kernels_reject_them():
     xp = torch.zeros(2, 5, 128)
     w = torch.zeros(32, 128)
     with pytest.raises(ValueError, match="CUDA"):
-        fl.bilstm_train_forward_kernel(xp, xp, w, w)
+        fl.bilstm_train_forward_packed(
+            fl.pack_bilstm(_to_torch(params), "generic"), xp, xp)
     out = torch.zeros(2, 5, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fl.bilstm_train_backward_kernel(
             out, torch.zeros(2, 2, 5, 128), torch.zeros(2, 2, 5, 32), out,
             w.t(), w.t())
     assert (fl.train_fwd_launches, fl.train_bwd_launches) == before[1:]
+
+
+# ------------------------------------ K3 with separate biases and a pack
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_forward_with_separate_biases_is_bit_equal_to_folded(dtype):
+    """K3's plain version on raw xp and the biases is the same function as
+    on xp with the biases folded in: out and both residuals."""
+    params, x, _ = _case(10, 5, 7, 10, 32)
+    pt = {k: v.to(dtype) for k, v in _to_torch(params).items()}
+    xt = torch.from_numpy(x).to(dtype)
+    w = (pt["weight_hh_l0"].t(), pt["weight_hh_l0_reverse"].t())
+    raw, b = fl.raw_projections(pt, xt), fl.layer_biases(pt)
+    folded = fl.bilstm_train_forward_plain(
+        raw[0] + b[0] + b[1], raw[1] + b[2] + b[3], *w)
+    split = fl.bilstm_train_forward_plain(*raw, *w, b)
+    for a, b in zip(folded, split):
+        assert torch.equal(a, b)
+    assert torch.equal(split[0], fl.fused_bilstm_train(pt, xt))
+
+
+@pytest.mark.parametrize("name,H", [("cluster_fma", 64), ("cluster_fma", 128),
+                                    ("generic", 16)])
+def test_packed_residuals_land_in_the_original_gate_order(name, H):
+    """K3's kernels read xp, the biases and W_hh^T in the pack's order
+    (column 4u+q) and store the activated gates at q*H + u: one step from
+    the packed arrays, block slice by block slice, scattered that way,
+    equals the plain version's residuals."""
+    params, x, _ = _case(11, 4, 1, 6, H)
+    pt = _to_torch(params)
+    xt = torch.from_numpy(x)
+    pack = fl.pack_bilstm(pt, name)
+    want_out, want_gates, want_cs = fl.bilstm_train_forward_plain(
+        *fl.raw_projections(pt, xt), pt["weight_hh_l0"].t(),
+        pt["weight_hh_l0_reverse"].t(), fl.layer_biases(pt))
+    units = H if name == "generic" else 32
+    for d, xp in enumerate(fl.packed_projections(pack, xt)):
+        gates = torch.empty(4, 4 * H)
+        cs = torch.empty(4, H)
+        for r in range(H // units):
+            cols = slice(4 * units * r, 4 * units * (r + 1))
+            pre = ((xp[:, 0, cols] + pack.bias[d, 0, cols])
+                   + pack.bias[d, 1, cols]).reshape(4, units, 4)
+            # h_{t-1} = 0 at the only step, so W_hh adds nothing; its slice
+            # must still have the block's shape
+            assert pack.w_hh[d][:, cols].shape == (H, 4 * units)
+            i, f, o = (torch.sigmoid(pre[..., q]) for q in (0, 1, 3))
+            g = torch.tanh(pre[..., 2])
+            own = torch.arange(units * r, units * (r + 1))
+            for q, act in enumerate((i, f, g, o)):
+                gates[:, q * H + own] = act
+            cs[:, own] = i * g
+        np.testing.assert_allclose(gates.numpy(), want_gates[d, :, 0].numpy(),
+                                   atol=1e-6)
+        np.testing.assert_allclose(cs.numpy(), want_cs[d, :, 0].numpy(),
+                                   atol=1e-6)
+
+
+def test_pack_cache_follows_an_optimizer_step():
+    """Adam updates the parameters in place every train step: the cached
+    pack must be rebuilt from the new values, and only then."""
+    params, x, weight = _case(12, 3, 4, 6, 64)
+    pt = _to_torch(params, grad=True)
+    optimizer = torch.optim.Adam(pt.values(), lr=1e-2)
+    first = fl.packed_layer(pt, "cluster_fma")
+    assert fl.packed_layer(pt, "cluster_fma") is first
+    out = fl.fused_bilstm_train(pt, torch.from_numpy(x))
+    (out * torch.from_numpy(weight)).sum().backward()
+    assert fl.packed_layer(pt, "cluster_fma") is first   # grads are no update
+    optimizer.step()
+    second = fl.packed_layer(pt, "cluster_fma")
+    assert second is not first
+    fresh = fl.pack_bilstm({k: v.detach() for k, v in pt.items()},
+                           "cluster_fma")
+    for d in range(2):
+        assert torch.equal(second.w_hh[d], fresh.w_hh[d])
+        assert torch.equal(second.w_ih[d], fresh.w_ih[d])
+        assert not torch.equal(second.w_hh[d], first.w_hh[d])
+    assert torch.equal(second.bias, fresh.bias)
+
+
+@pytest.mark.parametrize("B,T,H,dtype,want", [
+    (64, 33, 256, torch.float32, "cluster_fma"),     # the trainer's step
+    (512, 33, 256, torch.float32, "cluster_fma"),
+    (37, 21, 256, torch.float32, "cluster_fma"),     # HP window, ragged
+    (64, 33, 256, torch.bfloat16, "cluster_fma"),    # residuals: no mma
+    (5, 1, 128, torch.float32, "cluster_fma"),
+    (9, 12, 64, torch.bfloat16, "cluster_fma"),
+    (17, 3, 32, torch.float32, "generic"),
+    (6, 12, 16, torch.float32, "generic"),
+])
+def test_select_kernel_for_the_training_forward(B, T, H, dtype, want):
+    assert fl.select_kernel(B, T, H, dtype, residuals=True) == want

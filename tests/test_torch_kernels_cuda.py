@@ -19,6 +19,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _packed(launch, residuals, xp_f, xp_b, w_t_f, w_t_b, biases, name):
+    B, T, G = xp_f.shape
+    name = name or fl.select_kernel(B, T, G // 4, xp_f.dtype, residuals)
+    pack = fl.pack_weights(name, w_t_f.t(), w_t_b.t(), biases)
+    return launch(pack, xp_f[..., pack.xp_order], xp_b[..., pack.xp_order])
+
+
+def _k1(xp_f, xp_b, w_t_f, w_t_b, biases=None, name=None):
+    """K1 on xp [B,T,4H] and W_hh^T [H,4H] in their original gate order:
+    packs the weights for the selected (or the named) kernel and gathers
+    xp's columns into its order, as the layer's packed W_ih would."""
+    return _packed(fl.bilstm_recurrence_packed, False, xp_f, xp_b, w_t_f,
+                   w_t_b, biases, name)
+
+
+def _k3(xp_f, xp_b, w_t_f, w_t_b, biases=None, name=None):
+    """K3 likewise."""
+    return _packed(fl.bilstm_train_forward_packed, True, xp_f, xp_b, w_t_f,
+                   w_t_b, biases, name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
                                         (torch.float32, 1e-4)])
@@ -33,7 +54,7 @@ def test_bilstm_kernel_matches_plain(cuda_device, dtype, atol, B, T, H):
     w = [((torch.rand(H, 4 * H, generator=g) * 2 - 1) / 16)
          .to(cuda_device, dtype) for _ in range(2)]
     before = fl.launches
-    got = fl.bilstm_recurrence(*xp, *w)
+    got = _k1(*xp, *w)
     torch.cuda.synchronize()
     assert fl.launches == before + 1
     want = fl.bilstm_recurrence_plain(*xp, *w)
@@ -41,11 +62,123 @@ def test_bilstm_kernel_matches_plain(cuda_device, dtype, atol, B, T, H):
     assert err <= atol, err
 
 
+def _lstm_layer(device, dtype, F, H, seed):
+    """A layer's eight parameters with torch's default init scale."""
+    g = torch.Generator().manual_seed(seed)
+    return {n: ((torch.rand((4 * H, F) if "weight_ih" in n else
+                            (4 * H, H) if "weight_hh" in n else (4 * H,),
+                            generator=g) * 2 - 1) / H ** 0.5).to(device, dtype)
+            for n in fl._PARAM_NAMES}
+
+
+# the runner's tile edge cases for the cluster kernels: B below one tile, not
+# a multiple of the 64-row (mma) or 16-row (fma) tile, one past many tiles,
+# T=1, every hidden size they take, and shapes only the generic kernel takes
+LAYER_SHAPES = [(1, 1, 26, 256), (5, 17, 26, 128), (37, 21, 48, 256),
+                (63, 2, 10, 64), (65, 3, 512, 256), (1000, 21, 48, 256),
+                (16385, 2, 26, 256), (17, 3, 10, 32), (9, 4, 10, 192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,T,F,H", LAYER_SHAPES)
+def test_fused_bilstm_layer_matches_plain(cuda_device, dtype, atol, B, T, F,
+                                          H):
+    """The layer path the runner takes (packed W_ih projection, raw xp and
+    the biases into the selected kernel) against the plain version on the
+    original parameters; the selected kernel's own counter moves; a second
+    call gives identical bits and reuses the cached pack."""
+    params = _lstm_layer(cuda_device, dtype, F, H, seed=B + T + H)
+    g = torch.Generator().manual_seed(B)
+    x = torch.randn(B, T, F, generator=g).to(cuda_device, dtype)
+    name = fl.select_kernel(B, T, H, dtype)
+    before = (fl.launches, fl.kernel_launches[name])
+    got = fl.fused_bilstm(params, x)
+    torch.cuda.synchronize()
+    assert (fl.launches, fl.kernel_launches[name]) == (before[0] + 1,
+                                                       before[1] + 1)
+    builds = fl.pack_builds
+    again = fl.fused_bilstm(params, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and fl.pack_builds == builds
+    want = fl.bilstm_recurrence_plain(
+        *fl.raw_projections(params, x), params["weight_hh_l0"].t(),
+        params["weight_hh_l0_reverse"].t(), fl.layer_biases(params))
+    assert got.dtype == dtype and got.shape == (B, T, 2 * H)
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= atol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float32, 1e-4)])
+def test_generic_kernel_takes_the_cluster_kernels_shapes(cuda_device, dtype,
+                                                         atol):
+    """The generic kernel stays callable at the shapes the cluster kernels
+    take (the timing comparison uses it)."""
+    B, T, H = 37, 5, 256
+    g = torch.Generator().manual_seed(3)
+    xp = [(torch.randn(B, T, 4 * H, generator=g) * 0.5).to(cuda_device, dtype)
+          for _ in range(2)]
+    w = [((torch.rand(H, 4 * H, generator=g) * 2 - 1) / 16)
+         .to(cuda_device, dtype) for _ in range(2)]
+    b = tuple((torch.rand(4 * H, generator=g) / 16).to(cuda_device, dtype)
+              for _ in range(4))
+    before = fl.kernel_launches["generic"]
+    got = _k1(*xp, *w, b, name="generic")
+    torch.cuda.synchronize()
+    assert fl.kernel_launches["generic"] == before + 1
+    want = fl.bilstm_recurrence_plain(*xp, *w, b)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+def test_cluster_fma_alternates_between_hidden_sizes(cuda_device):
+    """One kernel serves every hidden size with its own shared-memory
+    size, and the launcher remembers what it asked the runtime per size: a
+    wide layer must still launch after a narrow one used the same kernel."""
+    for H in (256, 128, 256, 64, 256):
+        params = _lstm_layer(cuda_device, torch.float32, 10, H, seed=H)
+        x = torch.randn(21, 3, 10, device=cuda_device)
+        assert fl.select_kernel(21, 3, H, torch.float32) == "cluster_fma"
+        got = fl.fused_bilstm(params, x)
+        want = fl.bilstm_recurrence_plain(
+            *fl.raw_projections(params, x), params["weight_hh_l0"].t(),
+            params["weight_hh_l0_reverse"].t(), fl.layer_biases(params))
+        assert (got - want).abs().max().item() <= 1e-4
+        out = fl.fused_bilstm_train(params, x)        # K3, the same kernel
+        assert (out - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_packed_kernels_refuse_a_pack_of_another_shape(cuda_device):
+    params = _lstm_layer(cuda_device, torch.float32, 10, 64, seed=1)
+    xp = torch.zeros(4, 3, 4 * 64, device=cuda_device)
+    before = fl.launches
+    mma = fl.pack_bilstm(params, "cluster_mma")              # f32: not mma's
+    with pytest.raises(ValueError, match="does not take"):
+        fl.bilstm_recurrence_packed(mma, xp, xp)
+    fma = fl.pack_bilstm(params, "cluster_fma")
+    with pytest.raises(ValueError, match="does not fit"):
+        fl.bilstm_recurrence_packed(fma, xp[..., :128], xp[..., :128])
+    with pytest.raises(ValueError, match="one device and dtype"):
+        fl.bilstm_recurrence_packed(fma, xp.bfloat16(), xp.bfloat16())
+    # bf16 inference is the tensor-core kernel's at every such shape
+    fma16 = fl.pack_bilstm({k: v.bfloat16() for k, v in params.items()},
+                           "cluster_fma")
+    with pytest.raises(ValueError, match="does not take"):
+        fl.bilstm_recurrence_packed(fma16, xp.bfloat16(), xp.bfloat16())
+    assert fl.launches == before
+
+
 @pytest.mark.cuda
 def test_bilstm_kernel_takes_strided_and_offset_inputs(cuda_device):
-    """A time-major view and an xp slice at an odd offset give the same
-    result as contiguous copies (the wrapper copies what the kernel cannot
-    read directly)."""
+    """A time-major view and an xp slice at an odd offset (both taken as
+    projections in the pack's column order) give the same result as
+    contiguous copies (the wrapper copies what the kernel cannot read
+    directly)."""
     g = torch.Generator().manual_seed(1)
     B, T, H = 9, 7, 64
     big = torch.randn(T, B, 4 * H + 1, generator=g).to(cuda_device)
@@ -53,9 +186,10 @@ def test_bilstm_kernel_takes_strided_and_offset_inputs(cuda_device):
     flat = torch.randn(B * T * 4 * H + 1, generator=g).to(cuda_device)
     xp_b = flat[1:].view(B, T, 4 * H)              # contiguous, base 4 B off
     assert xp_b.is_contiguous() and xp_b.data_ptr() % 16
-    w = (torch.rand(2, H, 4 * H, generator=g) / 8).to(cuda_device)
-    got = fl.bilstm_recurrence(xp_f, xp_b, w[0], w[1])
-    want = fl.bilstm_recurrence(xp_f.contiguous(), xp_b.clone(), w[0], w[1])
+    w = (torch.rand(2, 4 * H, H, generator=g) / 8).to(cuda_device)
+    pack = fl.pack_weights("cluster_fma", w[0], w[1], None)
+    got = fl.bilstm_recurrence_packed(pack, xp_f, xp_b)
+    want = fl.bilstm_recurrence_packed(pack, xp_f.contiguous(), xp_b.clone())
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -66,10 +200,10 @@ def test_bilstm_kernel_rejects_what_it_does_not_take(cuda_device):
     w = torch.zeros(512, 4 * 512, device=cuda_device)
     before = fl.launches
     with pytest.raises(ValueError, match="hidden size"):
-        fl.bilstm_recurrence(xp, xp, w, w)
+        _k1(xp, xp, w, w)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fl.bilstm_recurrence(xp[..., :64].half(), xp[..., :64].half(),
-                             w[:16, :64].half(), w[:16, :64].half())
+        _k1(xp[..., :64].half(), xp[..., :64].half(), w[:16, :64].half(),
+            w[:16, :64].half())
     assert fl.launches == before
 
 
@@ -169,7 +303,7 @@ def _train_inputs(device, dtype, B, T, H, seed):
 
 
 TRAIN_SHAPES = [(64, 33, 256), (37, 21, 256), (5, 1, 128), (17, 3, 32),
-                (9, 12, 64)]
+                (9, 12, 64), (1, 2, 256), (513, 3, 256), (15, 4, 192)]
 
 
 @pytest.mark.cuda
@@ -181,11 +315,19 @@ def test_bilstm_train_forward_kernel_matches_plain(cuda_device, dtype, atol,
     """K3: out, the activated gates and the cell states. bf16 tolerance: h
     is rounded to bf16 each step and the sums run in another order."""
     xp, w = _train_inputs(cuda_device, dtype, B, T, H, seed=B + T)
-    before = fl.train_fwd_launches
-    got = fl.bilstm_train_forward(*xp, w[0].t(), w[1].t())
+    g = torch.Generator().manual_seed(B)
+    biases = tuple((torch.rand(4 * H, generator=g) / H ** 0.5).to(
+        cuda_device, dtype) for _ in range(4))
+    name = fl.select_kernel(B, T, H, dtype, residuals=True)
+    before = (fl.train_fwd_launches, fl.kernel_launches[name])
+    got = _k3(*xp, w[0].t(), w[1].t(), biases)
     torch.cuda.synchronize()
-    assert fl.train_fwd_launches == before + 1
-    want = fl.bilstm_train_forward_plain(*xp, w[0].t(), w[1].t())
+    assert (fl.train_fwd_launches, fl.kernel_launches[name]) == (
+        before[0] + 1, before[1] + 1)
+    again = _k3(*xp, w[0].t(), w[1].t(), biases)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fl.bilstm_train_forward_plain(*xp, w[0].t(), w[1].t(), biases)
     assert got[0].dtype == dtype
     assert got[1].dtype == got[2].dtype == torch.float32
     for name, a, b in zip(("out", "gates", "cs"), got, want):
@@ -224,7 +366,7 @@ def test_bilstm_train_backward_kernel_is_deterministic(cuda_device):
     """No atomics: two calls on the same inputs give the same bits."""
     B, T, H = 100, 33, 256
     xp, w = _train_inputs(cuda_device, torch.float32, B, T, H, seed=8)
-    out, gates, cs = fl.bilstm_train_forward(*xp, w[0].t(), w[1].t())
+    out, gates, cs = _k3(*xp, w[0].t(), w[1].t())
     gout = torch.randn(B, T, 2 * H, device=cuda_device)
     first = fl.bilstm_train_backward(gout, gates, cs, out, w[0], w[1])
     second = fl.bilstm_train_backward(gout, gates, cs, out, w[0], w[1])
@@ -235,9 +377,10 @@ def test_bilstm_train_backward_kernel_is_deterministic(cuda_device):
 
 @pytest.mark.cuda
 def test_bilstm_train_kernels_take_strided_and_offset_inputs(cuda_device):
-    """A time-major xp view, an xp slice at an odd offset, gout as a
-    transposed view and W_hh as a slice of a larger tensor give the same
-    result as contiguous copies."""
+    """A time-major xp view, an xp slice at an odd offset (both taken as
+    projections in the pack's column order), gout as a transposed view and
+    W_hh as a slice of a larger tensor give the same result as contiguous
+    copies."""
     g = torch.Generator().manual_seed(4)
     B, T, H = 9, 7, 64
     big = torch.randn(T, B, 4 * H + 1, generator=g).to(cuda_device)
@@ -245,10 +388,10 @@ def test_bilstm_train_kernels_take_strided_and_offset_inputs(cuda_device):
     flat = torch.randn(B * T * 4 * H + 1, generator=g).to(cuda_device)
     xp_b = flat[1:].view(B, T, 4 * H)              # contiguous, base 4 B off
     w = (torch.rand(2, 4 * H + 1, H, generator=g) / 8).to(cuda_device)[:, 1:]
-    got = fl.bilstm_train_forward(xp_f, xp_b, w[0].t(), w[1].t())
-    want = fl.bilstm_train_forward(xp_f.contiguous(), xp_b.clone(),
-                                   w[0].t().contiguous(),
-                                   w[1].t().contiguous())
+    pack = fl.pack_weights("cluster_fma", w[0], w[1], None)
+    got = fl.bilstm_train_forward_packed(pack, xp_f, xp_b)
+    want = fl.bilstm_train_forward_packed(pack, xp_f.contiguous(),
+                                          xp_b.clone())
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     out, gates, cs = want
@@ -270,7 +413,7 @@ def test_fused_bilstm_train_gradients_match_plain(cuda_device, B, T, F, H):
     Tolerance relative to each gradient's largest entry: the two sides sum
     B*T-long products in different orders."""
     g = torch.Generator().manual_seed(B + F)
-    names = fl._TRAIN_PARAM_NAMES
+    names = fl._PARAM_NAMES
     params = {n: (torch.rand((4 * H, F) if "weight_ih" in n else
                              (4 * H, H) if "weight_hh" in n else (4 * H,),
                              generator=g) * 2 - 1) / H ** 0.5 for n in names}
@@ -304,13 +447,12 @@ def test_bilstm_train_kernels_reject_what_they_do_not_take(cuda_device):
     w = torch.zeros(512, 4 * 512, device=cuda_device)
     before = (fl.train_fwd_launches, fl.train_bwd_launches)
     with pytest.raises(ValueError, match="hidden size"):
-        fl.bilstm_train_forward(xp, xp, w, w)
+        _k3(xp, xp, w, w)
     with pytest.raises(ValueError, match="hidden size"):     # 6 % 4 != 0
-        fl.bilstm_train_forward(xp[..., :24], xp[..., :24], w[:6, :24],
-                                w[:6, :24])
+        _k3(xp[..., :24], xp[..., :24], w[:6, :24], w[:6, :24])
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fl.bilstm_train_forward(xp[..., :64].half(), xp[..., :64].half(),
-                                w[:16, :64].half(), w[:16, :64].half())
+        _k3(xp[..., :64].half(), xp[..., :64].half(), w[:16, :64].half(),
+            w[:16, :64].half())
     out = torch.zeros(2, 3, 32, device=cuda_device)
     with pytest.raises(ValueError, match="bad residuals"):
         fl.bilstm_train_backward(out, xp[None, ..., :64], out[None], out,
