@@ -16,10 +16,12 @@ at once, into the git-ignored build/ directory, then:
      bit-identical, and times it beside its bound, the generic kernel, the
      plain version, nn.LSTM (cuDNN) as a yardstick, and a build of the same
      kernel with exact tanhf/expf in place of tanh.approx;
-  3. holds kernel K2 (fused biGRU recurrence, h0 in, final h out) against
-     its plain version at the polish shapes (encoder and decoder layers)
-     and on a ragged batch, bf16 and f32, and times it beside its bound,
-     the plain version and nn.GRU (cuDNN);
+  3. holds kernel K2 (fused biGRU recurrence, h0 in, final h out: the
+     tensor-core kernel in bf16, the generic kernel in f32) against its
+     plain version at the polish shapes (encoder and decoder layers), on a
+     ragged batch and at one row, one step, hidden 64, two calls
+     bit-identical, and times it beside its bound, the generic kernel, the
+     plain version, nn.GRU (cuDNN) and a build with exact tanhf/expf;
   4. runs the classifier forward at full width on the card and holds it
      against the plain f32 CPU forward;
   5. runs the polish model and the window/vote consensus at full width on
@@ -32,23 +34,26 @@ at once, into the git-ignored build/ directory, then:
   7. runs the streamed polish end to end on a synthetic ~100 kb draft on
      the card (bf16, then f32) and on the CPU (f32), checks that K2 was
      launched 38 times per device batch and that the consensus agrees;
+     prints one batch's device time, busy and idle share and K2's share;
   8. holds kernels K3 (residual-saving biLSTM forward) and K4 (BPTT
-     backward and dW_hh) against their plain versions at the trainer's
-     shapes (batch 512 and 64, encoder and decoder layers), on a ragged
-     HP-window shape and at the cluster kernel's tile edges, K3 also in
-     bf16 and two calls bit-identical, and through the autograd function
-     every gradient against autograd through the plain step loop; checks
-     that two backward calls give identical bits; times both beside their
-     bounds, K3's generic kernel, the plain versions and nn.LSTM (cuDNN)
-     forward and backward, and K3's host time per launch;
+     backward and dW_hh, the cluster pair or the generic pair) against
+     their plain versions at the trainer's shapes (batch 512 and 64,
+     encoder and decoder layers), on a ragged HP-window shape, at the
+     cluster kernels' tile edges and at hidden 128 and 32, K3 also in bf16,
+     two calls bit-identical, and through the autograd function every
+     gradient against autograd through the plain step loop; times both
+     beside their bounds, the generic kernels, the plain versions and
+     nn.LSTM (cuDNN) forward and backward, K4 split into its recurrence and
+     dW_hh, both kernels of each past their selection thresholds, and the
+     host time per K3 and K4 launch;
   9. takes one full-width train step on the card and holds its loss, every
      gradient and the updated parameters against the same step on the CPU;
  10. trains for ~20 steps at batch 64 on labeled images encoded in memory
      from a synthetic dataset with a truth VCF, with evals and checkpoints,
      checks that K3 and K4 were each launched twice per step and K1 by the
      evals, that the loss fell, and that the checkpoint resumes with its
-     optimizer state; prints ms per step, the device time by kernel and
-     the peak memory;
+     optimizer state; prints ms per step, its busy and idle share, the
+     device time by kernel (K4's share) and the peak memory;
  11. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
@@ -79,7 +84,7 @@ H = 256            # classifier biLSTM hidden size
 PH = 128           # polish biGRU hidden size
 WINDOW = 100       # polish window (19 per 1000-long sequence)
 POLISH_BATCH = 128
-# builds the tensor-core K1 with tanhf/expf in place of tanh.approx
+# builds the tensor-core K1 and K2 with tanhf/expf in place of tanh.approx
 EXACT_ACTIVATIONS = ("PEPPER_EXACT_ACTIVATIONS",)
 
 
@@ -151,6 +156,28 @@ def device_breakdown(fn, reps: int = 3) -> dict:
     return per_kernel
 
 
+def per_launch_ms(fn, reps: int = 5) -> dict:
+    """Device milliseconds per launch by kernel name, with the number of
+    launches: the mean over the launches a torch.profiler (CUPTI) trace of
+    `reps` calls of fn recorded, after one warm-up. A mean per recorded
+    launch, not a sum over the calls: a trace can miss a launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = total.get(e.name, (0.0, 0))
+            total[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {name: (ms / n, n) for name, (ms, n) in total.items()}
+
+
 def _max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
@@ -161,9 +188,11 @@ def _rel_err(got, want) -> float:
     return _max_err(got, want) / max(1.0, want.float().abs().max().item())
 
 
-def numpy_variant_tree(seed: int, features: int = 26, window: int = 33):
-    """Seeded torch-default init (U(+-1/sqrt(fan))) of the classifier, as
-    numpy arrays with the torch-layout names the checkpoints use."""
+def numpy_variant_tree(seed: int, features: int = 26, window: int = 33,
+                       hidden: int = H):
+    """Seeded torch-default init (U(+-1/sqrt(fan))) of the classifier (other
+    hidden sizes for kernel edge cases), as numpy arrays with the
+    torch-layout names the checkpoints use."""
     rng = np.random.default_rng(seed)
 
     def u(shape, fan):
@@ -173,17 +202,17 @@ def numpy_variant_tree(seed: int, features: int = 26, window: int = 33):
     def rnn(f):
         out = {}
         for sfx in ("", "_reverse"):
-            out["weight_ih_l0" + sfx] = u((4 * H, f), H)
-            out["weight_hh_l0" + sfx] = u((4 * H, H), H)
-            out["bias_ih_l0" + sfx] = u((4 * H,), H)
-            out["bias_hh_l0" + sfx] = u((4 * H,), H)
+            out["weight_ih_l0" + sfx] = u((4 * hidden, f), hidden)
+            out["weight_hh_l0" + sfx] = u((4 * hidden, hidden), hidden)
+            out["bias_ih_l0" + sfx] = u((4 * hidden,), hidden)
+            out["bias_hh_l0" + sfx] = u((4 * hidden,), hidden)
         return out
 
     def lin(i, o):
         return {"weight": u((o, i), i), "bias": u((o,), i)}
 
-    tree = {"encoder": rnn(features), "decoder": rnn(2 * H),
-            "linear_1": lin(2 * H * window, 512)}
+    tree = {"encoder": rnn(features), "decoder": rnn(2 * hidden),
+            "linear_1": lin(2 * hidden * window, 512)}
     for k in range(2, 6):
         tree[f"linear_{k}"] = lin(512, 512)
     tree["output_layer_type"] = lin(512, 3)
@@ -197,9 +226,10 @@ def images(rng, n: int, window: int = 33, features: int = 26) -> np.ndarray:
     return x.astype(np.int8)
 
 
-def numpy_polish_tree(seed: int):
+def numpy_polish_tree(seed: int, hidden: int = PH):
     """Seeded torch-default init of the polish model (biGRU 10->128, biGRU
-    256->128, Linear 256->5) as numpy arrays with torch-layout names."""
+    256->128, Linear 256->5; other hidden sizes for kernel edge cases) as
+    numpy arrays with torch-layout names."""
     rng = np.random.default_rng(seed)
 
     def u(shape, fan):
@@ -209,15 +239,15 @@ def numpy_polish_tree(seed: int):
     def rnn(f):
         out = {}
         for sfx in ("", "_reverse"):
-            out["weight_ih_l0" + sfx] = u((3 * PH, f), PH)
-            out["weight_hh_l0" + sfx] = u((3 * PH, PH), PH)
-            out["bias_ih_l0" + sfx] = u((3 * PH,), PH)
-            out["bias_hh_l0" + sfx] = u((3 * PH,), PH)
+            out["weight_ih_l0" + sfx] = u((3 * hidden, f), hidden)
+            out["weight_hh_l0" + sfx] = u((3 * hidden, hidden), hidden)
+            out["bias_ih_l0" + sfx] = u((3 * hidden,), hidden)
+            out["bias_hh_l0" + sfx] = u((3 * hidden,), hidden)
         return out
 
-    return {"gru_encoder": rnn(10), "gru_decoder": rnn(2 * PH),
-            "dense1": {"weight": u((5, 2 * PH), 2 * PH),
-                       "bias": u((5,), 2 * PH)}}
+    return {"gru_encoder": rnn(10), "gru_decoder": rnn(2 * hidden),
+            "dense1": {"weight": u((5, 2 * hidden), 2 * hidden),
+                       "bias": u((5,), 2 * hidden)}}
 
 
 def polish_images(rng, n: int) -> np.ndarray:
@@ -245,7 +275,8 @@ def phase_environment():
     threads = [threading.Thread(target=build, args=(fn,)) for fn in (
         fused_lstm._kernel_lib, fused_lstm._train_kernel_lib,
         fused_gru._kernel_lib, bamio.available,
-        lambda: fused_lstm.load_forward_library(EXACT_ACTIVATIONS))]
+        lambda: fused_lstm.load_forward_library(EXACT_ACTIVATIONS),
+        lambda: fused_gru.load_kernel_library(EXACT_ACTIVATIONS))]
     for t in threads:
         t.start()
     for t in threads:
@@ -449,13 +480,13 @@ def phase_kernel(dev):
 
 
 # --------------------------------------------------------------- phase 3
-def k2_bound_ms(B: int, T: int, elem: int, peak_ops: float):
+def k2_bound_ms(B: int, T: int, elem: int, peak_ops: float, H: int = PH):
     """(bound ms, bound_by): xp (both directions), W_hh^T and h0 read once,
     out and the final h written once, b_hh (f32) read once;
     2*2*T*B*H*3H operations."""
-    nbytes = ((2 * B * T * 3 * PH + B * T * 2 * PH + 2 * PH * 3 * PH
-               + 2 * 2 * B * PH) * elem + 2 * 3 * PH * 4)
-    ops = 2 * 2 * T * B * PH * 3 * PH
+    nbytes = ((2 * B * T * 3 * H + B * T * 2 * H + 2 * H * 3 * H
+               + 2 * 2 * B * H) * elem + 2 * 3 * H * 4)
+    ops = 2 * 2 * T * B * H * 3 * H
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -467,48 +498,107 @@ def phase_k2(dev):
 
     rng = np.random.default_rng(41)
     tree = numpy_polish_tree(42)
+    small = numpy_polish_tree(43, hidden=64)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     timed = {}
+    # the consensus batch and a ragged one through both layers (each layer
+    # reads the previous one's output and final h), then one row, one step
+    # at hidden 64
+    cases = [("polish", POLISH_BATCH, WINDOW, tree),
+             ("ragged", 37, WINDOW, tree), ("one_row_one_step", 1, 1, small)]
     for dtype in (torch.bfloat16, torch.float32):
-        params = params_from_jax(tree, dev, dtype)
-        for label, B in (("polish", POLISH_BATCH), ("ragged", 37)):
-            x = torch.from_numpy(polish_images(rng, B)[:, :WINDOW]).to(
+        for label, B, T, t in cases:
+            params = params_from_jax(t, dev, dtype)
+            hidden = params["gru_encoder"]["weight_hh_l0"].shape[1]
+            x = torch.from_numpy(polish_images(rng, B)[:, :T]).to(
                 dev).to(dtype)
             h = torch.from_numpy(0.5 * rng.standard_normal(
-                (B, 2, PH)).astype(np.float32)).to(dev, dtype)
+                (B, 2, hidden)).astype(np.float32)).to(dev, dtype)
             for layer in ("gru_encoder", "gru_decoder"):
                 p = params[layer]
-                xp_f, xp_b = fg.input_projections(p, x)
-                args = (xp_f, xp_b, p["weight_hh_l0"].t(),
-                        p["weight_hh_l0_reverse"].t(), p["bias_hh_l0"],
-                        p["bias_hh_l0_reverse"], h[:, 0], h[:, 1])
-                got = fg.bigru_recurrence_kernel(*args)
+                name = fg.select_kernel(B, T, hidden, dtype)
+                pack = fg.packed_layer(p, name)
+                xp = fg.input_projections(p, x)
+                got = fg.bigru_recurrence_packed(pack, *xp, h)
+                again = fg.bigru_recurrence_packed(pack, *xp, h)
                 torch.cuda.synchronize()
-                want = fg.bigru_recurrence_plain(*args)
-                errs = [(g.float() - w.float()).abs().max().item()
-                        for g, w in zip(got, want)]
+                want = fg.bigru_recurrence_plain(
+                    *xp, p["weight_hh_l0"].t(), p["weight_hh_l0_reverse"].t(),
+                    p["bias_hh_l0"], p["bias_hh_l0_reverse"], h[:, 0],
+                    h[:, 1])
+                errs = [_max_err(g, w) for g, w in zip(got, want)]
+                tag = (f"{label} B={B} T={T} H={hidden} {layer} (F="
+                       f"{x.shape[-1]}, nonzero h0) {str(dtype)[6:]}")
                 check(all(bool(torch.isfinite(g.float()).all())
-                          for g in got),
-                      f"K2 non-finite output ({label} {layer} {dtype})")
-                print(f"K2 {label} B={B} T={WINDOW} {layer} (F="
-                      f"{x.shape[-1]}, nonzero h0) {str(dtype)[6:]}: "
-                      f"max_abs_err out {errs[0]:.3e} h_final {errs[1]:.3e}"
-                      f" (tolerance {tol[dtype]:g})", flush=True)
+                          for g in got), f"K2 non-finite output ({tag})")
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K2 is not bit-identical across two calls ({tag})")
+                print(f"K2 {name} {tag}: max_abs_err out {errs[0]:.3e} "
+                      f"h_final {errs[1]:.3e} (tolerance {tol[dtype]:g}); "
+                      f"two calls bit-identical", flush=True)
                 check(max(errs) <= tol[dtype], f"K2 disagrees with its "
-                      f"plain version: {errs} > {tol[dtype]} ({label} "
-                      f"{layer} {dtype})")
+                      f"plain version: {errs} > {tol[dtype]} ({tag})")
                 worst[dtype] = max(worst[dtype], *errs)
                 if label == "polish" and layer == "gru_encoder":
-                    timed[dtype] = args
+                    timed[dtype] = (p, xp, h, want)
                 # the next layer reads this layer's output and final h
                 x, h = want
-    kernel_ms = median_ms(
-        lambda: fg.bigru_recurrence_kernel(*timed[torch.bfloat16]))
-    plain_ms = median_ms(
-        lambda: fg.bigru_recurrence_plain(*timed[torch.bfloat16]))
-    f32_ms = median_ms(
-        lambda: fg.bigru_recurrence_kernel(*timed[torch.float32]))
+    p, xp, h, want = timed[torch.bfloat16]
+    mma, generic = fg.packed_layer(p, "mma"), fg.packed_layer(p, "generic")
+    runs = {"mma": [], "generic": []}
+    for name, pk in (("generic", generic), ("mma", mma), ("mma", mma),
+                     ("generic", generic)):
+        runs[name].append(median_ms(
+            lambda: fg.bigru_recurrence_packed(pk, *xp, h)))
+    kernel_ms, old_ms = min(runs["mma"]), min(runs["generic"])
+    plain_args = (*xp, p["weight_hh_l0"].t(), p["weight_hh_l0_reverse"].t(),
+                  p["bias_hh_l0"], p["bias_hh_l0_reverse"], h[:, 0], h[:, 1])
+    plain_ms = median_ms(lambda: fg.bigru_recurrence_plain(*plain_args))
+    # what tanh.approx buys: the same kernel built with tanhf/expf, timed
+    # approx, exact, exact, approx, and both held to the plain version
+    approx_err = max(_max_err(g, w) for g, w in zip(
+        fg.bigru_recurrence_packed(mma, *xp, h), want))
+    approx_lib = fg._kernel_lib()
+    exact_lib = fg.load_kernel_library(EXACT_ACTIVATIONS)
+    act_runs = {"approx": [], "exact": []}
+    try:
+        for label in ("approx", "exact", "exact", "approx"):
+            fg._lib = exact_lib if label == "exact" else approx_lib
+            act_runs[label].append(median_ms(
+                lambda: fg.bigru_recurrence_packed(mma, *xp, h)))
+        fg._lib = exact_lib
+        exact_err = max(_max_err(g, w) for g, w in zip(
+            fg.bigru_recurrence_packed(mma, *xp, h), want))
+    finally:
+        fg._lib = approx_lib
+    exact_ms = min(act_runs["exact"])
+    check(exact_err <= tol[torch.bfloat16], f"K2 built with exact "
+          f"activations disagrees with its plain version: {exact_err}")
+    print(f"K2 activations B={POLISH_BATCH} T={WINDOW} H={PH} bf16 (median "
+          f"of 10, timed approx, exact, exact, approx): tanh.approx "
+          f"{act_runs['approx']} ms, max_abs_err {approx_err:.3e}; "
+          f"tanhf/expf {act_runs['exact']} ms, max_abs_err "
+          f"{exact_err:.3e}", flush=True)
+    p32, xp32, h32, _ = timed[torch.float32]
+    pack32 = fg.packed_layer(p32, fg.select_kernel(POLISH_BATCH, WINDOW, PH,
+                                                   torch.float32))
+    f32_ms = median_ms(lambda: fg.bigru_recurrence_packed(pack32, *xp32, h32))
+    # device time alone (CUDA events also count the wrapper's host time
+    # before the launch): mma, and the generic kernel in bf16 and in f32
+    device = {
+        label: sum(ms for name, (ms, _) in per_launch_ms(
+            lambda: fg.bigru_recurrence_packed(pk, *xs, h0)).items()
+            if "bigru" in name)
+        for label, pk, xs, h0 in (("mma", mma, xp, h),
+                                  ("generic_bf16", generic, xp, h),
+                                  ("generic_f32", pack32, xp32, h32))}
+    print(f"K2 device time B={POLISH_BATCH} T={WINDOW} H={PH} "
+          f"(torch.profiler, mean per recorded launch of 5 calls): mma "
+          f"{device['mma']:.4f} ms; generic "
+          f"bf16 {device['generic_bf16']:.4f} ms, f32 "
+          f"{device['generic_f32']:.4f} ms", flush=True)
+    host = host_us(lambda: fg.bigru_recurrence_packed(mma, *xp, h))
     library = {}
     for F in (10, 2 * PH):
         gru = torch.nn.GRU(F, PH, batch_first=True, bidirectional=True).to(
@@ -523,15 +613,19 @@ def phase_k2(dev):
     bound_ms, bound_by = k2_bound_ms(POLISH_BATCH, WINDOW, 2, PEAK_BF16)
     f32_bound_ms, f32_bound_by = k2_bound_ms(POLISH_BATCH, WINDOW, 4,
                                              PEAK_FP32)
-    ctas = 2 * -(-POLISH_BATCH // 4)
-    print(f"K2 timing B={POLISH_BATCH} T={WINDOW} H={PH} (median of 10, "
-          f"CUDA events; tile 4 batch rows x {PH} threads, {ctas} CTAs): "
-          f"bf16 kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.3f} "
-          f"bound_ms {bound_ms:.4f} ({bound_by}) library_ms "
+    print(f"K2 timing B={POLISH_BATCH} T={WINDOW} H={PH} bf16 (median of 10,"
+          f" CUDA events; kernels timed generic, mma, mma, generic, the "
+          f"smaller median of each): kernel_ms {kernel_ms:.4f} (mma, 16-row "
+          f"tiles, {2 * -(-POLISH_BATCH // 16)} CTAs; {runs['mma']}) "
+          f"generic_kernel_ms {old_ms:.4f} (4-row tiles, "
+          f"{2 * -(-POLISH_BATCH // 4)} CTAs; {runs['generic']}) plain_ms "
+          f"{plain_ms:.3f} bound_ms {bound_ms:.4f} ({bound_by}) library_ms "
           f"{library[10]:.4f} (nn.GRU(10, {PH}) bf16, cuDNN, h0 given, incl. "
           f"its input projection), {library[2 * PH]:.4f} for nn.GRU("
-          f"{2 * PH}, {PH}); f32 kernel_ms {f32_ms:.4f} bound_ms "
-          f"{f32_bound_ms:.4f} ({f32_bound_by}, FP32 peak)", flush=True)
+          f"{2 * PH}, {PH}); f32 kernel_ms {f32_ms:.4f} ({pack32.name}) "
+          f"bound_ms {f32_bound_ms:.4f} ({f32_bound_by}, FP32 peak); host "
+          f"{host:.1f} us per launch (wrapper, mean of 200 enqueued back to "
+          f"back)", flush=True)
     return {"name": "K2 fused_bigru", "route": "cuda",
             "source": "pepper_tpu_torch/csrc/fused_gru.cu",
             "replaces": "pepper_tpu/ops/fused_gru.py:26",
@@ -539,7 +633,14 @@ def phase_k2(dev):
             "max_abs_err_f32": worst[torch.float32],
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library[10],
-            "ms_f32": f32_ms}
+            "kernel": "mma", "generic_kernel_ms": old_ms,
+            "exact_activations_ms": exact_ms,
+            "exact_activations_max_abs_err": exact_err,
+            "kernel_f32": pack32.name, "ms_f32": f32_ms,
+            "device_ms": device["mma"],
+            "generic_device_ms_bf16": device["generic_bf16"],
+            "generic_device_ms_f32": device["generic_f32"],
+            "host_us_per_launch": host}
 
 
 # --------------------------------------------------------------- phase 4
@@ -897,11 +998,13 @@ def phase_polish_end_to_end(dev, work_dir, name):
           f"({mbp / wall_cpu:.4f} Mbp/s)", flush=True)
     total = sum(per_kernel.values())
     if total:
+        k2_ms = sum(ms for k, ms in per_kernel.items() if "bigru" in k)
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
         print(f"profile of one {POLISH_BATCH}-sequence consensus batch "
               f"(torch.profiler, mean of 3): device busy {total:.2f} ms of "
               f"{batch_ms:.2f} ms ({100 * (1 - total / batch_ms):.0f}% "
-              f"idle); " + "; ".join(
+              f"idle); K2 {k2_ms:.2f} ms ({100 * k2_ms / total:.0f}% of "
+              f"busy); " + "; ".join(
                   f"{k[:70]} {ms:.2f} ms ({100 * ms / total:.0f}%)"
                   for k, ms in top), flush=True)
     else:
@@ -943,17 +1046,35 @@ def k3_bound_ms(B: int, T: int, elem: int, peak_ops: float):
                                        else "operations")
 
 
-def k4_bound_ms(B: int, T: int, elem: int):
+def k4_bound_ms(B: int, T: int, elem: int, hidden: int = H):
     """(bound ms, bound_by): gout and out (h_prev) read once in the layer's
     dtype; gates, cs and W_hh read once and dxp and dW_hh written once in
     f32; two products (dgates @ W_hh and h_prev^T @ dgates) of
     2*2*T*B*H*4H operations each, in f32."""
-    nbytes = (2 * B * T * 2 * H * elem
-              + (2 * 2 * B * T * 4 * H + 2 * B * T * H + 2 * 2 * 4 * H * H) * 4)
-    ops = 2 * 2 * 2 * T * B * H * 4 * H
+    Hd = hidden
+    nbytes = (2 * B * T * 2 * Hd * elem
+              + (2 * 2 * B * T * 4 * Hd + 2 * B * T * Hd
+                 + 2 * 2 * 4 * Hd * Hd) * 4)
+    ops = 2 * 2 * 2 * T * B * Hd * 4 * Hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FP32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def k4_parts_ms(fn) -> dict:
+    """K4's device time per call split into its recurrence and its dW_hh
+    kernels (the chunk sum included; each kernel launches once a call),
+    and the fewest launches the trace recorded of any of them."""
+    parts = {"recurrence": 0.0, "dW_hh": 0.0, "recorded": 5}
+    for name, (ms, n) in per_launch_ms(fn).items():
+        if "bilstm_bwd" in name:
+            parts["recurrence"] += ms
+        elif "dwhh" in name or "sum_chunks" in name:
+            parts["dW_hh"] += ms
+        else:
+            continue
+        parts["recorded"] = min(parts["recorded"], n)
+    return parts
 
 
 def k3_host_us(pack, xp) -> dict:
@@ -979,6 +1100,35 @@ def k3_host_us(pack, xp) -> dict:
             "c_call": host_us(c_call)}
 
 
+def k4_host_us(pack, gout, gates, cs, out) -> dict:
+    """Host microseconds per K4 launch (the selected pair): the Python
+    wrapper, and the library's C function alone (both kernels' launches,
+    the shared-memory and occupancy look-ups)."""
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    B, T, H2 = gout.shape
+    code = fl.BACKWARD_CODES[fl.select_backward_kernel(B, T, H2 // 2,
+                                                       out.dtype)]
+    lib = fl._train_kernel_lib()
+    dxp, dwhh = fl.bilstm_train_backward_kernel(pack, gout, gates, cs, out)
+    scratch = torch.empty(
+        (lib.pepper_bilstm_train_backward_scratch(code, B, T, H2 // 2),),
+        device=out.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (code, gout.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            out.data_ptr(), pack.w_hh[0].data_ptr(), pack.w_hh[1].data_ptr(),
+            dxp.data_ptr(), dwhh.data_ptr(), scratch.data_ptr(), B, T,
+            H2 // 2, 0, stream)
+
+    def c_call():
+        check(lib.pepper_bilstm_train_backward(*args) == 0,
+              "K4's C function failed")
+
+    return {"wrapper": host_us(lambda: fl.bilstm_train_backward_kernel(
+                pack, gout, gates, cs, out)),
+            "c_call": host_us(c_call)}
+
+
 def phase_train_kernels(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
     from pepper_tpu_torch.models.rnn import lstm as plain_lstm
@@ -987,18 +1137,23 @@ def phase_train_kernels(dev):
     rng = np.random.default_rng(71)
     tree = numpy_variant_tree(72)
     hp_tree = numpy_variant_tree(73, features=48, window=21)
+    narrow = {Hs: numpy_variant_tree(74 + Hs, window=9, hidden=Hs)
+              for Hs in (128, 32)}
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_tol = {bf16: 2e-2, f32: 1e-4}
     worst = {"k3": {bf16: 0.0, f32: 0.0}, "k4": 0.0, "k4_dwhh": 0.0,
              "grads": 0.0}
     timed = {}
     # the trainer's batches, a ragged HP-window batch, and where the cluster
-    # kernel's 16-row tiles can go wrong: one row past many tiles, fewer
-    # rows than one tile, one step
+    # kernels' 16-row tiles can go wrong: one row past many tiles, fewer
+    # rows than one tile, one step; the cluster kernels' other width and a
+    # width only the generic kernels take
     cases = [("trainer", 512, 33, 26, tree), ("trainer", 64, 33, 26, tree),
              ("hp_ragged", 37, 21, 48, hp_tree),
              ("one_past_the_tiles", 513, 3, 26, tree),
-             ("below_one_tile", 5, 33, 26, tree), ("one_step", 37, 1, 26, tree)]
+             ("below_one_tile", 5, 33, 26, tree), ("one_step", 37, 1, 26, tree),
+             ("hidden_128", 37, 9, 26, narrow[128]),
+             ("hidden_32", 17, 9, 26, narrow[32])]
     for label, B, T, F, t in cases:
         x8 = images(rng, B, T, F)
         for dtype in (f32, bf16):
@@ -1006,10 +1161,11 @@ def phase_train_kernels(dev):
             x = torch.from_numpy(x8).to(dev, dtype)
             for layer in ("encoder", "decoder"):
                 p = params[layer]
-                tag = (f"{label} B={B} T={T} {layer} (F={x.shape[-1]}) "
-                       f"{str(dtype)[6:]}")
+                hidden = p["weight_hh_l0"].shape[1]
+                tag = (f"{label} B={B} T={T} H={hidden} {layer} (F="
+                       f"{x.shape[-1]}) {str(dtype)[6:]}")
                 w_f, w_b = p["weight_hh_l0"], p["weight_hh_l0_reverse"]
-                name = fl.select_kernel(B, T, H, dtype, residuals=True)
+                name = fl.select_kernel(B, T, hidden, dtype, residuals=True)
                 pack = fl.packed_layer(p, name)
                 xp = fl.packed_projections(pack, x)
                 got = fl.bilstm_train_forward_packed(pack, *xp)
@@ -1036,11 +1192,12 @@ def phase_train_kernels(dev):
                 # K4 on the plain forward's residuals
                 out, gates, cs = want
                 gout = torch.from_numpy(rng.standard_normal(
-                    (B, T, 2 * H)).astype(np.float32)).to(dev)
+                    (B, T, 2 * hidden)).astype(np.float32)).to(dev)
+                pair = fl.select_backward_kernel(B, T, hidden, dtype)
                 dxp, dwhh = fl.bilstm_train_backward_kernel(
-                    gout, gates, cs, out, w_f, w_b)
+                    pack, gout, gates, cs, out)
                 again = fl.bilstm_train_backward_kernel(
-                    gout, gates, cs, out, w_f, w_b)
+                    pack, gout, gates, cs, out)
                 torch.cuda.synchronize()
                 want_dxp, want_dwhh = fl.bilstm_train_backward_plain(
                     gout, gates, cs, out, w_f, w_b)
@@ -1049,9 +1206,10 @@ def phase_train_kernels(dev):
                       f"K4 is not bit-identical across two calls ({tag})")
                 e_dxp, e_dw = _max_err(dxp, want_dxp), _rel_err(dwhh,
                                                                  want_dwhh)
-                print(f"K4 {tag}: max_abs_err dxp {e_dxp:.3e} (tolerance "
-                      f"1e-4), dW_hh {e_dw:.3e} of its largest entry "
-                      f"{want_dwhh.abs().max().item():.3e} (tolerance 1e-3); "
+                print(f"K4 {pair} {tag}: max_abs_err dxp {e_dxp:.3e} "
+                      f"(tolerance 1e-4), dW_hh {e_dw:.3e} of its largest "
+                      f"entry {want_dwhh.abs().max().item():.3e} (tolerance "
+                      f"1e-3); "
                       f"two calls bit-identical", flush=True)
                 check(e_dxp <= 1e-4 and e_dw <= 1e-3,
                       f"K4 disagrees with its plain version ({tag})")
@@ -1103,12 +1261,21 @@ def phase_train_kernels(dev):
                              ("generic", old_pack, old_xp)):
             runs[name].append(median_ms(
                 lambda: fl.bilstm_train_forward_packed(pk, *xs)))
+        # K4's two pairs on the same residuals and pack, in turns
+        res = (pack, gout, gates, cs, out)
+        bwd = {"cluster_fma": [], "generic": []}
+        for name in ("generic", "cluster_fma", "cluster_fma", "generic"):
+            bwd[name].append(median_ms(
+                lambda: fl.launch_backward(name, *res)))
         row = {
             "k3": min(runs["cluster_fma"]), "k3_generic": min(runs["generic"]),
             "k3_plain": median_ms(lambda: fl.bilstm_train_forward_plain(
                 *raw, *_layer_args(p))),
-            "k4": median_ms(lambda: fl.bilstm_train_backward_kernel(
-                gout, gates, cs, out, w_f, w_b)),
+            "k4": min(bwd["cluster_fma"]), "k4_generic": min(bwd["generic"]),
+            "k4_parts": k4_parts_ms(
+                lambda: fl.launch_backward("cluster_fma", *res)),
+            "k4_generic_parts": k4_parts_ms(
+                lambda: fl.launch_backward("generic", *res)),
             "k4_plain": median_ms(lambda: fl.bilstm_train_backward_plain(
                 gout, gates, cs, out, w_f, w_b)),
             "lib_fwd": median_ms(lambda: lstm(x)),
@@ -1128,37 +1295,58 @@ def phase_train_kernels(dev):
               f"({row['k3_by']}, FP32 peak) library_ms {row['lib_fwd']:.4f} "
               f"(nn.LSTM(26, {H}) f32 forward with grad enabled, cuDNN, "
               f"incl. its input projection)", flush=True)
+        parts = row["k4_parts"]
+        old_parts = row["k4_generic_parts"]
         print(f"K4 timing B={B} T={T} H={H} f32 (median of 10, CUDA "
-              f"events; both kernels): kernel_ms {row['k4']:.4f} plain_ms "
-              f"{row['k4_plain']:.3f} bound_ms {row['k4_bound']:.4f} "
-              f"({row['k4_by']}, FP32 peak) library_ms {row['lib_bwd']:.4f} "
-              f"(nn.LSTM(26, {H}) f32 backward, cuDNN, incl. its input "
-              f"projection's gradients)", flush=True)
+              f"events; pairs timed generic, cluster_fma, cluster_fma, "
+              f"generic, the smaller median of each; selected "
+              f"{fl.select_backward_kernel(B, T, H, f32)}): kernel_ms "
+              f"{row['k4']:.4f} (cluster_fma; {bwd['cluster_fma']}; by "
+              f"kernel, torch.profiler mean per recorded launch, at least "
+              f"{parts['recorded']} of 5 recorded: recurrence "
+              f"{parts['recurrence']:.4f}, dW_hh {parts['dW_hh']:.4f}) "
+              f"generic_kernel_ms {row['k4_generic']:.4f} ({bwd['generic']}; "
+              f"recurrence {old_parts['recurrence']:.4f}, dW_hh "
+              f"{old_parts['dW_hh']:.4f}) plain_ms {row['k4_plain']:.3f} "
+              f"bound_ms {row['k4_bound']:.4f} ({row['k4_by']}, FP32 peak) "
+              f"library_ms {row['lib_bwd']:.4f} (nn.LSTM(26, {H}) f32 "
+              f"backward, cuDNN, incl. its input projection's gradients)",
+              flush=True)
     # where select_kernel hands K3 (and K1 in f32) from the FMA cluster kernel
-    # to the generic one: both at 1024 rows, past the 640-row threshold
+    # to the generic one, past its 640-row threshold; and K4's two pairs at
+    # the same batches: select_backward_kernel has no threshold, since the
+    # cluster pair measured faster at every batch
     p = timed[512][0]
-    x = torch.from_numpy(images(rng, 1024)).to(dev, f32)
     cross = {}
-    for name in ("generic", "cluster_fma"):
-        pk = fl.packed_layer(p, name)
-        xs = fl.packed_projections(pk, x)
-        cross[name] = median_ms(
-            lambda: fl.bilstm_train_forward_packed(pk, *xs))
-    print(f"K3 timing B=1024 T=33 H={H} f32 (median of 10): "
-          f"{fl.select_kernel(1024, 33, H, f32, residuals=True)} (selected) "
-          f"{cross['generic']:.4f} ms, cluster_fma {cross['cluster_fma']:.4f} "
-          f"ms", flush=True)
-    per_kernel = device_breakdown(lambda: fl.bilstm_train_backward_kernel(
-        *timed[512][7:], *timed[512][5:7]))
-    if per_kernel:
-        print("K4 B=512 by kernel (torch.profiler, mean of 3): " + "; ".join(
-            f"{k[:60]} {ms:.4f} ms" for k, ms in sorted(
-                per_kernel.items(), key=lambda kv: -kv[1])[:4]), flush=True)
+    for B in (1024, 2048, 4096):
+        x = torch.from_numpy(images(rng, B)).to(dev, f32)
+        forward = {}
+        for name in ("generic", "cluster_fma"):
+            pk = fl.packed_layer(p, name)
+            xs = fl.packed_projections(pk, x)
+            forward[name] = median_ms(
+                lambda: fl.bilstm_train_forward_packed(pk, *xs), reps=5)
+        out, gates, cs = fl.bilstm_train_forward_packed(pk, *xs)
+        gout = torch.randn(B, 33, 2 * H, device=dev)
+        backward = {name: median_ms(
+            lambda: fl.launch_backward(name, pk, gout, gates, cs, out),
+            reps=5) for name in ("generic", "cluster_fma")}
+        cross[B] = {"k3": forward, "k4": backward}
+        print(f"K3/K4 crossover B={B} T=33 H={H} f32 (median of 5): K3 "
+              f"{fl.select_kernel(B, 33, H, f32, residuals=True)} selected, "
+              f"generic {forward['generic']:.4f} ms, cluster_fma "
+              f"{forward['cluster_fma']:.4f} ms; K4 "
+              f"{fl.select_backward_kernel(B, 33, H, f32)} selected, generic "
+              f"{backward['generic']:.4f} ms, cluster_fma "
+              f"{backward['cluster_fma']:.4f} ms", flush=True)
     host = k3_host_us(timed[64][2], timed[64][3])
-    print(f"K3 host time per launch B=64 T=33 H={H} f32 (mean of 200 "
-          f"launches enqueued back to back): wrapper "
-          f"{host['wrapper']:.1f} us, of which the library's C function "
-          f"{host['c_call']:.1f} us; the kernel runs {rows[64]['k3']:.4f} ms",
+    host4 = k4_host_us(*(timed[64][i] for i in (2, 7, 8, 9, 10)))
+    print(f"host time per launch B=64 T=33 H={H} f32 (mean of 200 launches "
+          f"enqueued back to back): K3 wrapper {host['wrapper']:.1f} us, of "
+          f"which the library's C function {host['c_call']:.1f} us (the "
+          f"kernel runs {rows[64]['k3']:.4f} ms); K4 wrapper "
+          f"{host4['wrapper']:.1f} us, of which the C function "
+          f"{host4['c_call']:.1f} us (the pair runs {rows[64]['k4']:.4f} ms)",
           flush=True)
     main_b, big = rows[64], rows[512]
     k3 = {"name": "K3 fused_bilstm_train forward", "route": "cuda",
@@ -1173,20 +1361,30 @@ def phase_train_kernels(dev):
           "host_us_per_launch": host["wrapper"],
           "host_us_per_c_call": host["c_call"],
           "generic_kernel_ms_b512": big["k3_generic"],
-          "generic_kernel_ms_b1024": cross["generic"],
-          "cluster_fma_ms_b1024": cross["cluster_fma"],
+          "generic_kernel_ms_b1024": cross[1024]["k3"]["generic"],
+          "cluster_fma_ms_b1024": cross[1024]["k3"]["cluster_fma"],
           "ms_b512": big["k3"], "plain_ms_b512": big["k3_plain"],
           "bound_ms_b512": big["k3_bound"], "library_ms_b512": big["lib_fwd"]}
     k4 = {"name": "K4 fused_bilstm_train backward", "route": "cuda",
-          "source": "pepper_tpu_torch/csrc/fused_lstm_train.cu",
+          "source": "pepper_tpu_torch/csrc/fused_lstm_bwd_cluster.cuh",
           "replaces": "pepper_tpu/ops/fused_lstm.py:167",
           "max_abs_err": worst["k4"], "max_rel_err_dwhh": worst["k4_dwhh"],
           "max_rel_err_gradients": worst["grads"],
           "ms": main_b["k4"], "plain_ms": main_b["k4_plain"],
           "bound_ms": main_b["k4_bound"], "bound_by": main_b["k4_by"],
           "library_ms": main_b["lib_bwd"], "shape": "B=64 T=33 H=256 f32",
+          "kernel": fl.select_backward_kernel(64, 33, H, f32),
+          "recurrence_ms": main_b["k4_parts"]["recurrence"],
+          "dwhh_ms": main_b["k4_parts"]["dW_hh"],
+          "generic_kernel_ms": main_b["k4_generic"],
+          "host_us_per_launch": host4["wrapper"],
+          "host_us_per_c_call": host4["c_call"],
           "ms_b512": big["k4"], "plain_ms_b512": big["k4_plain"],
-          "bound_ms_b512": big["k4_bound"], "library_ms_b512": big["lib_bwd"]}
+          "recurrence_ms_b512": big["k4_parts"]["recurrence"],
+          "dwhh_ms_b512": big["k4_parts"]["dW_hh"],
+          "generic_kernel_ms_b512": big["k4_generic"],
+          "bound_ms_b512": big["k4_bound"], "library_ms_b512": big["lib_bwd"],
+          "crossover_ms": {str(B): c["k4"] for B, c in cross.items()}}
     return k3, k4
 
 
@@ -1390,9 +1588,9 @@ def phase_trainer(dev, work_dir, name):
     if total:
         groups = {"K3": 0.0, "K4 recurrence": 0.0, "K4 dW_hh": 0.0}
         for k, ms in per_kernel.items():
-            if "bilstm_bwd_kernel" in k:
+            if "bilstm_bwd" in k:
                 groups["K4 recurrence"] += ms
-            elif "bilstm_dwhh_kernel" in k:
+            elif "dwhh" in k or "sum_chunks" in k:
                 groups["K4 dW_hh"] += ms
             elif "bilstm_cluster_fma_kernel" in k or "bilstm_kernel" in k:
                 groups["K3"] += ms

@@ -42,7 +42,6 @@
 #include <map>
 #include <mutex>
 #include <tuple>
-#include <utility>
 
 #include "fused_lstm_common.cuh"
 
@@ -265,18 +264,15 @@ inline bool cluster_hidden_ok(int H) { return H == 64 || H == 128 || H == 256; }
 // How many clusters of `cluster` blocks of `kernel` (with `smem` bytes of
 // dynamic shared memory each) the current device holds at once, in
 // *resident; 0 where it holds none. The first call for a (kernel, smem,
-// device) asks the occupancy calculator, and raises the kernel's
-// shared-memory limit if it is below `smem` (the limit belongs to the
-// kernel, whatever hidden size asked for it: it is only ever raised); later
-// calls read the answer from a table, so a launch costs the host no more
-// than the launch itself. Returns the CUDA error of the first call that
-// failed.
+// device) raises the kernel's shared-memory limit (raise_smem_limit) and
+// asks the occupancy calculator; later calls read the answer from a table,
+// so a launch costs the host no more than the launch itself. Returns the
+// CUDA error of the first call that failed.
 inline cudaError_t resident_clusters(const void* kernel, int cluster,
                                      int threads, size_t smem,
                                      int* resident) {
   static std::mutex mutex;
   static std::map<std::tuple<const void*, size_t, int>, int> known;
-  static std::map<std::pair<const void*, int>, size_t> limit;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -287,14 +283,8 @@ inline cudaError_t resident_clusters(const void* kernel, int cluster,
     *resident = found->second;
     return cudaSuccess;
   }
-  size_t& allowed = limit[std::make_pair(kernel, device)];
-  if (smem > allowed) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    allowed = smem;
-  }
+  err = raise_smem_limit(kernel, smem);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(cluster, 2);
   config.blockDim = dim3(threads);

@@ -19,6 +19,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kernel_util.cuh"
+
 namespace {
 
 constexpr int kBT = 16;          // batch rows per block
@@ -49,10 +51,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&w)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
   w[0] = a.x; w[1] = a.y; w[2] = b.x; w[3] = b.y;
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
 }
 
 // xp + b_ih + b_hh with the plain version's rounding: each sum is rounded

@@ -48,44 +48,6 @@ constexpr int kMmaRows = 16 * kMB;        // batch rows per cluster
 constexpr int kMmaUnits = 64;             // hidden units per block: 8 warps x 8
 constexpr int kMmaThreads = 256;
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a @ b: a 16 x 16 (row major), b 16 x 8 (column major), bf16; d f32
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The gate activations: tanh.approx (one special-function operation) and
-// sigmoid(x) = 0.5 tanh(x/2) + 0.5. Built with -DPEPPER_EXACT_ACTIVATIONS
-// they are tanhf and 1 / (1 + expf(-x)) as in the other kernels: the smoke
-// run times that build beside this one to tell what the approximation buys.
-__device__ __forceinline__ float tanh_fast(float x) {
-#ifdef PEPPER_EXACT_ACTIVATIONS
-  return tanhf(x);
-#else
-  float y;
-  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-#endif
-}
-
-__device__ __forceinline__ float sigmoid_fast(float x) {
-#ifdef PEPPER_EXACT_ACTIVATIONS
-  return sigmoid(x);
-#else
-  return fmaf(0.5f, tanh_fast(0.5f * x), 0.5f);
-#endif
-}
-
 // Two bf16 sums at once, each rounded to bf16. A sum of two bf16 values is
 // exact in f32 unless their exponents differ by more than 16, and then the
 // smaller one is under half a bf16 unit of the larger: either way this is

@@ -10,46 +10,41 @@
 // about it), shared with K1 in f32; for other hidden sizes up to 256 the
 // generic kernel of fused_lstm_common.cuh.
 //
-// K4 replaces pepper_tpu/ops/fused_lstm.py::_bilstm_bwd_kernel, in two
-// kernels launched back to back:
-//   bilstm_bwd_kernel walks each direction's steps in reverse with a
-//   (dh, dc) carry. Per step
-//       dh_tot = gout[t] + dh;  tc = tanh(c_t)
-//       do     = dh_tot * tc;   dc_tot = dc + dh_tot * o * (1 - tc^2)
-//       dgates = [dc_tot*g*i*(1-i), dc_tot*c_prev*f*(1-f),
-//                 dc_tot*i*(1-g^2), do*o*(1-o)]          -> dxp[t]
-//       dh     = dgates @ W_hh;  dc = dc_tot * f
-//   with c_prev = 0 at the direction's first forward step.
-//   bilstm_dwhh_kernel then computes dW_hh[g, k] = sum over (b, t) of
-//   dgates[b, t, g] * h_prev[b, t, k], where h_prev is the layer output one
-//   step earlier in the direction's own order (zero at its first step).
+// K4 replaces pepper_tpu/ops/fused_lstm.py::_bilstm_bwd_kernel. Each
+// direction walks its steps in reverse with a (dh, dc) carry. Per step
+//     dh_tot = gout[t] + dh;  tc = tanh(c_t)
+//     do     = dh_tot * tc;   dc_tot = dc + dh_tot * o * (1 - tc^2)
+//     dgates = [dc_tot*g*i*(1-i), dc_tot*c_prev*f*(1-f),
+//               dc_tot*i*(1-g^2), do*o*(1-o)]          -> dxp[t]
+//     dh     = dgates @ W_hh;  dc = dc_tot * f
+// with c_prev = 0 at the direction's first forward step; then dW_hh[g, k] =
+// sum over (b, t) of dgates[b, t, g] * h_prev[b, t, k], where h_prev is the
+// layer output one step earlier in the direction's own order (zero at its
+// first step). Two pairs of kernels compute it:
+// - cluster (fused_lstm_bwd_cluster.cuh, hidden sizes 64, 128 and 256): the
+//   recurrence with W_hh resident in a cluster's shared memory, read from
+//   the forward's pack, and a split, register-blocked dW_hh; the header says
+//   what bounds them and what the design does about it.
+// - generic (below, any hidden size that is a multiple of 4 up to 256):
+//   bilstm_bwd_kernel gives a block 16 rows and all 4H gate columns of one
+//   direction; the tile's dgates go through shared memory (64 KiB at H=256)
+//   laid out [4H][16], and thread j streams column j of W_hh ([4H, H] as
+//   torch stores it) from L2 every step, so a step costs that stream's
+//   latency whatever the batch. bilstm_dwhh_kernel then gives a block a
+//   64x64 tile of dW_hh and all (b, t) in a fixed order, 4x4 accumulators a
+//   thread. Neither uses atomics, so two calls give identical bits.
 //
-// What bounds them on the H100 (B=512, T=33, H=256, f32): K3 does 17.7 GFLOP
-// in h @ W_hh^T (0.26 ms at the 67 TFLOP/s FP32 peak) against ~0.35 GB moved
-// (0.10 ms); K4 does 35.4 GFLOP in its two products (0.53 ms) against
-// ~0.42 GB, so operations bound both.
-//
-// What K4's design does about it (the simple first version):
-// - In the backward thread j can rebuild unit j's dgates from the saved
-//   gates, c_t, c_prev and its own dc register, but dh[b, j] contracts over
-//   all 4H columns: the tile's dgates go through shared memory (64 KiB at
-//   H=256, opted in with cudaFuncSetAttribute), laid out [4H][16] so the
-//   product reads four rows per vector load while thread j streams column j
-//   of W_hh ([4H, H] as torch stores it: coalesced, no transpose). dh and dc
-//   never leave the thread's registers.
-// - The TPU kernel accumulates dW_hh in one block revisited by a sequential
-//   grid. Here the batch tiles run concurrently and [4H, H] f32 (1 MiB) fits
-//   in no block, so dW_hh is a second kernel over dxp and out once the time
-//   loop is done: each block owns a 64x64 tile of dW_hh and loops over all
-//   (b, t) in a fixed order. No atomics, so two calls give identical bits.
-// - Both products run as f32 FMAs; tensor cores (TF32 would change the
-//   trainer's numerics, bf16 more so) are left for a later change.
+// What bounds K4 on the H100 (B=512, T=33, H=256, f32): its two products
+// are 35.4 GFLOP (0.53 ms at the 67 TFLOP/s FP32 peak) against ~0.42 GB
+// moved, so operations bound it. Both products run as f32 FMAs: TF32 would
+// change the trainer's numerics, bf16 more so.
 
-#include "fused_lstm_cluster.cuh"   // includes the common header
+#include "fused_lstm_bwd_cluster.cuh"   // includes the cluster and
+                                        // common headers
 
 namespace {
 
-// ------------------------------------------------------------------ K4 (1)
+// ---------------------------------------------------------- generic K4 (1)
 // grid (ceil(B / kBT), 2 directions), block H threads, dynamic shared
 // memory 4H * kBT floats.
 // gout:  [B, T, 2H] in the layer's dtype (gradient of the layer output)
@@ -146,7 +141,7 @@ bilstm_bwd_kernel(const T* __restrict__ gout, const float* __restrict__ gates,
   }
 }
 
-// ------------------------------------------------------------------ K4 (2)
+// ---------------------------------------------------------- generic K4 (2)
 constexpr int kTile = 64;                  // dW_hh tile: 64 gate rows x 64 units
 constexpr int kTileN = 16;                 // (b, t) rows per shared-memory slab
 
@@ -259,18 +254,24 @@ int launch_forward(int kernel, const void* xp_f, const void* xp_b,
 }
 
 template <typename T>
-int launch_backward(const void* gout, const float* gates, const float* cs,
-                    const void* out, const float* whh_f, const float* whh_b,
-                    float* dxp, float* dwhh, int B, int steps, int H,
-                    cudaStream_t stream) {
+int launch_backward(int kernel, const void* gout, const float* gates,
+                    const float* cs, const void* out, const void* w_f,
+                    const void* w_b, float* dxp, float* dwhh, float* scratch,
+                    int B, int steps, int H, cudaStream_t stream) {
+  if (kernel == 1) {
+    if (!cluster_hidden_ok(H)) return 1000;
+    return launch_bwd_cluster<T>(gout, gates, cs, out, w_f, w_b, dxp, dwhh,
+                                 scratch, B, steps, H, stream);
+  }
+  if (kernel != 0) return 1000;
   const size_t smem = 4 * (size_t)H * kBT * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      bilstm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  cudaError_t err = raise_smem_limit(
+      reinterpret_cast<const void*>(bilstm_bwd_kernel<T>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kBT - 1) / kBT, 2);
   bilstm_bwd_kernel<T><<<grid, H, smem, stream>>>(
-      static_cast<const T*>(gout), gates, cs, whh_f, whh_b, dxp, B, steps, H);
+      static_cast<const T*>(gout), gates, cs, static_cast<const float*>(w_f),
+      static_cast<const float*>(w_b), dxp, B, steps, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 wgrid((4 * H + kTile - 1) / kTile, (H + kTile - 1) / kTile, 2);
@@ -287,10 +288,11 @@ bool bad_shape(int B, int steps, int H) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (xp, w, out, gout); gates, cs, whh, dxp
-// and dwhh are float32. Each returns cudaGetLastError() after its launches
-// (0 on success); 1000 for arguments the kernels do not take, 1001 where the
-// card cannot hold one cluster of the cluster kernel.
+// dtype: 0 = float32, 1 = bfloat16 (xp, w, out, gout, the cluster K4's
+// w); gates, cs, the generic K4's w, dxp, dwhh and scratch are float32.
+// Each returns cudaGetLastError() after its launches (0 on success); 1000
+// for arguments the kernels do not take, 1001 where the card cannot hold one
+// cluster of a cluster kernel.
 
 // K3. kernel: 0 generic, 1 cluster FMA; xp_*, w_* and bias as for
 // pepper_bilstm_forward with the same kernel.
@@ -312,29 +314,37 @@ int pepper_bilstm_train_forward(int kernel, const void* xp_f,
   return 1000;
 }
 
-// K4: the reverse-time recurrence, then dW_hh.
-int pepper_bilstm_train_backward(const void* gout, const void* gates,
-                                 const void* cs, const void* out,
-                                 const void* whh_f, const void* whh_b,
-                                 void* dxp, void* dwhh, int B, int steps,
-                                 int H, int dtype, void* stream) {
+// K4: the reverse-time recurrence, then dW_hh. kernel: 0 generic (w_* are
+// W_hh [4H, H] in f32, torch layout), 1 cluster (w_* are the cluster_fma
+// pack's W_hh^T [H, 4H] in dtype); scratch: as many floats as
+// pepper_bilstm_train_backward_scratch gives (may be null where that is 0).
+int pepper_bilstm_train_backward(int kernel, const void* gout,
+                                 const void* gates, const void* cs,
+                                 const void* out, const void* w_f,
+                                 const void* w_b, void* dxp, void* dwhh,
+                                 void* scratch, int B, int steps, int H,
+                                 int dtype, void* stream) {
   if (bad_shape(B, steps, H)) return 1000;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ga = static_cast<const float*>(gates);
   const float* c = static_cast<const float*>(cs);
-  const float* wf = static_cast<const float*>(whh_f);
-  const float* wb = static_cast<const float*>(whh_b);
   float* dx = static_cast<float*>(dxp);
   float* dw = static_cast<float*>(dwhh);
+  float* sc = static_cast<float*>(scratch);
   if (dtype == 0)
-    return launch_backward<float>(gout, ga, c, out, wf, wb, dx, dw, B, steps,
-                                  H, s);
+    return launch_backward<float>(kernel, gout, ga, c, out, w_f, w_b, dx, dw,
+                                  sc, B, steps, H, s);
   if (dtype == 1)
-    return launch_backward<__nv_bfloat16>(gout, ga, c, out, wf, wb, dx, dw, B,
-                                          steps, H, s);
+    return launch_backward<__nv_bfloat16>(kernel, gout, ga, c, out, w_f, w_b,
+                                          dx, dw, sc, B, steps, H, s);
   return 1000;
 }
 
-int pepper_bilstm_train_max_hidden(void) { return kMaxH; }
+// f32 scratch floats K4's kernel `kernel` needs at this shape (0: none).
+long long pepper_bilstm_train_backward_scratch(int kernel, int B, int steps,
+                                               int H) {
+  if (kernel != 1 || bad_shape(B, steps, H)) return 0;
+  return static_cast<long long>(dwhh_scratch_floats(B, steps, H));
+}
 
 }  // extern "C"

@@ -32,29 +32,35 @@ pepper_tpu/ops/fused_lstm.py:232-373. Its forward is kernel K3 (the same
 recurrence, which also stores the activated gates and the cell state of
 every step in f32; `cluster_fma` or `generic`), its backward kernel K4
 (reverse-time BPTT with a (dh, dc) carry, emitting dgates as dxp, plus
-dW_hh), both in `csrc/fused_lstm_train.cu`; the gradients of W_ih, of the
-four biases and of x are batched `torch.matmul`s and sums outside the
-kernel. For CPU tensors the forward is `bilstm_train_forward_plain` and the
-backward `bilstm_train_backward_plain`, an explicit reverse-time loop with
-K4's formulas (not autograd through the forward loop), so the CPU tests run
-the wiring the card runs.
+dW_hh), both in `csrc/fused_lstm_train.cu`; `select_backward_kernel` picks
+K4's `cluster_fma` pair (W_hh resident in a cluster's shared memory, read
+from the pack the forward used, which the autograd context carries) or its
+`generic` pair. The gradients of W_ih, of the four biases and of x are
+batched `torch.matmul`s and sums outside the kernel. For CPU tensors the
+forward is `bilstm_train_forward_plain` and the backward
+`bilstm_train_backward_plain`, an explicit reverse-time loop with K4's
+formulas (not autograd through the forward loop), so the CPU tests run the
+wiring the card runs.
 """
 import ctypes
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
+from pepper_tpu_torch.ops.pack_cache import cached_pack
+
 # kernel launches made by this process (reset by callers that count a run):
-# K1, K3 (train forward) and K4 (train backward: its two kernels count once),
-# and the same forward launches by the kernel that ran
+# K1, K3 (train forward) and K4 (train backward: its kernels count once),
+# the forward launches by the kernel that ran, and K4's likewise
 launches = 0
 train_fwd_launches = 0
 train_bwd_launches = 0
 KERNEL_CODES = {"generic": 0, "cluster_fma": 1, "cluster_mma": 2}
 kernel_launches = {name: 0 for name in KERNEL_CODES}
+BACKWARD_CODES = {"generic": 0, "cluster_fma": 1}
+bwd_kernel_launches = {name: 0 for name in BACKWARD_CODES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CLUSTER_HIDDEN = (64, 128, 256)
@@ -82,9 +88,10 @@ def _train_kernel_lib():
             + [ctypes.c_void_p])
         lib.pepper_bilstm_train_backward.restype = ctypes.c_int
         lib.pepper_bilstm_train_backward.argtypes = (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-        lib.pepper_bilstm_train_max_hidden.restype = ctypes.c_int
-        lib.pepper_bilstm_train_max_hidden.argtypes = []
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p])
+        lib.pepper_bilstm_train_backward_scratch.restype = ctypes.c_longlong
+        lib.pepper_bilstm_train_backward_scratch.argtypes = [ctypes.c_int] * 4
         _train_lib = lib
     return _train_lib
 
@@ -141,6 +148,26 @@ def select_kernel(B: int, T: int, H: int, dtype: torch.dtype,
             and B <= _CLUSTER_FMA_MAX_BATCH:
         return "cluster_fma"
     return "generic"
+
+
+def select_backward_kernel(B: int, T: int, H: int,
+                           dtype: torch.dtype) -> str:
+    """The pair of kernels that runs K4 for a [B,T,4H] layer on the card: a
+    pure function of shape and dtype. Raises for what no kernel takes.
+
+    The cluster pair takes every batch of the hidden sizes it runs: on the
+    H100 at T=33, H=256 it measured faster than the generic pair at every
+    batch `chip_smoke.py` times, 64 to 4096 rows (its recurrence costs
+    about as much per row as the generic one's once the generic one fills
+    the card, and its dW_hh half as much)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused biLSTM training kernels take float32 or "
+                        f"bfloat16, got {dtype}")
+    if B < 1 or T < 1 or H < 1 or H > MAX_HIDDEN or H % 4:
+        raise ValueError(
+            f"fused biLSTM training kernels: B={B}, T={T} must be positive "
+            f"and the hidden size {H} a multiple of 4, at most {MAX_HIDDEN}")
+    return "cluster_fma" if H in _CLUSTER_HIDDEN else "generic"
 
 
 def _add_biases(xp_f, xp_b, biases: Optional[Biases]):
@@ -254,43 +281,24 @@ def pack_bilstm(params: Dict[str, torch.Tensor], name: str) -> PackedBiLSTM:
 _PARAM_NAMES = tuple(
     name + sfx for sfx in ("", "_reverse")
     for name in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0", "bias_hh_l0"))
-_PACK_CACHE_SIZE = 16
-# (kernel, id of each parameter tensor) -> (the tensors, their state, pack).
-# An entry holds its eight source tensors, so their ids and their storage
-# cannot pass to another layer while it lives.
-_pack_cache: "OrderedDict[tuple, Tuple[tuple, tuple, PackedBiLSTM]]" = \
-    OrderedDict()
 pack_builds = 0          # packs built by `packed_layer` (its cache misses)
 
 
 def packed_layer(params: Dict[str, torch.Tensor], name: str) -> PackedBiLSTM:
-    """`pack_bilstm`, cached per layer: reused only for the same eight
-    tensor objects, none updated in place since (`_version`, which an
-    optimizer's step bumps) nor given other storage. Inference tensors track
-    no version, so a layer that holds one is packed on every call."""
+    """`pack_bilstm`, cached per layer (`ops/pack_cache.py`): reused only
+    for the same eight tensor objects, none updated in place since nor
+    given other storage; a layer that holds an inference tensor is packed
+    on every call."""
     global pack_builds
-    tensors = tuple(params[n] for n in _PARAM_NAMES)
-    if any(t.is_inference() for t in tensors):
-        pack_builds += 1
-        return pack_bilstm(params, name)
-    key = (name,) + tuple(id(t) for t in tensors)
-    state = tuple((t._version, t.data_ptr()) for t in tensors)
-    hit = _pack_cache.get(key)
-    if hit is not None and hit[1] == state \
-            and all(a is b for a, b in zip(hit[0], tensors)):
-        _pack_cache.move_to_end(key)
-        return hit[2]
-    pack = pack_bilstm(params, name)
-    pack_builds += 1
-    _pack_cache[key] = (tensors, state, pack)
-    _pack_cache.move_to_end(key)
-    while len(_pack_cache) > _PACK_CACHE_SIZE:
-        _pack_cache.popitem(last=False)
+    pack, built = cached_pack(
+        "bilstm:" + name, (params[n] for n in _PARAM_NAMES),
+        lambda: pack_bilstm(params, name))
+    pack_builds += built
     return pack
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, with a 16-byte aligned base (the kernel's vector loads)."""
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous, with a 16-byte aligned base (the kernels' vector loads)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -330,7 +338,7 @@ def bilstm_recurrence_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
     B, T, H = _check_packed_inputs("fused biLSTM kernel", pack, xp_f, xp_b,
                                    residuals=False)
     lib = _kernel_lib()
-    xp_f, xp_b = _aligned(xp_f), _aligned(xp_b)
+    xp_f, xp_b = aligned(xp_f), aligned(xp_b)
     out = torch.empty((B, T, 2 * H), dtype=xp_f.dtype, device=xp_f.device)
     with torch.cuda.device(xp_f.device):
         stream = torch.cuda.current_stream(xp_f.device).cuda_stream
@@ -455,13 +463,6 @@ def bilstm_train_backward_plain(gout: torch.Tensor, gates: torch.Tensor,
     return dxp, dwhh
 
 
-def _check_train_hidden(lib, H: int) -> None:
-    if H > lib.pepper_bilstm_train_max_hidden() or H % 4:
-        raise ValueError(
-            f"fused biLSTM training kernels: hidden size {H} must be a "
-            f"multiple of 4, at most {lib.pepper_bilstm_train_max_hidden()}")
-
-
 def bilstm_train_forward_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
                                 xp_b: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -474,7 +475,7 @@ def bilstm_train_forward_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
     B, T, H = _check_packed_inputs(what, pack, xp_f, xp_b, residuals=True)
     dtype, dev = xp_f.dtype, xp_f.device
     lib = _train_kernel_lib()
-    xp_f, xp_b = _aligned(xp_f), _aligned(xp_b)
+    xp_f, xp_b = aligned(xp_f), aligned(xp_b)
     out = torch.empty((B, T, 2 * H), dtype=dtype, device=dev)
     gates = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=dev)
     cs = torch.empty((2, B, T, H), dtype=torch.float32, device=dev)
@@ -493,58 +494,81 @@ def bilstm_train_forward_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
     return out, gates, cs
 
 
-def bilstm_train_backward_kernel(gout: torch.Tensor, gates: torch.Tensor,
-                                 cs: torch.Tensor, out: torch.Tensor,
-                                 whh_f: torch.Tensor, whh_b: torch.Tensor
+def _torch_layout_whh(pack: PackedBiLSTM) -> Tuple[torch.Tensor, ...]:
+    """W_hh [4H,H] of both directions in f32, torch's row order, from a
+    pack in the 4u+q column order (what the generic K4 reads)."""
+    H = pack.hidden
+    g = torch.arange(4 * H, device=pack.bias.device)
+    rows = (g % H) * 4 + g // H           # original row q*H+u is pack 4u+q
+    return tuple(w.t()[rows].float().contiguous() for w in pack.w_hh)
+
+
+def bilstm_train_backward_kernel(pack: PackedBiLSTM, gout: torch.Tensor,
+                                 gates: torch.Tensor, cs: torch.Tensor,
+                                 out: torch.Tensor
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K4 (the reverse-time recurrence, then dW_hh) on the tensors'
-    CUDA device (current stream)."""
+    """Launch K4 (the reverse-time recurrence, then dW_hh), the pair
+    `select_backward_kernel` picks, on the tensors' CUDA device (current
+    stream). `pack` is the forward's (`generic` or `cluster_fma`: one
+    layout). Returns (dxp [2,B,T,4H] f32, dW_hh [2,4H,H] f32)."""
+    B, T, H2 = gout.shape
+    return launch_backward(select_backward_kernel(B, T, H2 // 2, out.dtype),
+                           pack, gout, gates, cs, out)
+
+
+def launch_backward(name: str, pack: PackedBiLSTM, gout: torch.Tensor,
+                    gates: torch.Tensor, cs: torch.Tensor, out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 by its pair `name`: `cluster_fma` reads the pack's W_hh^T as it
+    is, `generic` reads W_hh in torch's row order, gathered from it."""
     global train_bwd_launches
     B, T, H2 = gout.shape
     H = H2 // 2
     dtype, dev = out.dtype, out.device
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"fused biLSTM training kernel takes float32 or "
-                        f"bfloat16, got {dtype}")
-    tensors = (gout, gates, cs, out, whh_f, whh_b)
+    tensors = (gout, gates, cs, out, pack.w_hh[0], pack.w_hh[1])
     if any(not t.is_cuda or t.device != dev for t in tensors):
         raise ValueError("fused biLSTM training kernel: all inputs must be "
                          "CUDA tensors of one device")
+    select_backward_kernel(B, T, H, dtype)           # raises for a bad shape
     if H2 != 2 * H or out.shape != gout.shape \
             or gates.shape != (2, B, T, 4 * H) or cs.shape != (2, B, T, H) \
-            or whh_f.shape != (4 * H, H) or whh_b.shape != (4 * H, H) \
             or gates.dtype != torch.float32 or cs.dtype != torch.float32:
         raise ValueError(f"fused biLSTM training kernel: bad residuals gout "
                          f"{tuple(gout.shape)}, out {tuple(out.shape)}, gates "
                          f"{tuple(gates.shape)} {gates.dtype}, cs "
-                         f"{tuple(cs.shape)} {cs.dtype}, W_hh "
-                         f"{tuple(whh_f.shape)}")
+                         f"{tuple(cs.shape)} {cs.dtype}")
+    if pack.name not in BACKWARD_CODES or pack.hidden != H \
+            or pack.w_hh[0].dtype != dtype:
+        raise ValueError(f"fused biLSTM training kernel: a {pack.name!r} "
+                         f"pack of hidden size {pack.hidden} does not fit "
+                         f"H={H}, {dtype}")
+    if name not in BACKWARD_CODES \
+            or (name == "cluster_fma" and H not in _CLUSTER_HIDDEN):
+        raise ValueError(f"fused biLSTM training kernel: {name!r} does not "
+                         f"take H={H}")
     lib = _train_kernel_lib()
-    _check_train_hidden(lib, H)
-    gout, out = _aligned(gout.to(dtype)), _aligned(out)
-    gates, cs = _aligned(gates), _aligned(cs)
-    whh_f, whh_b = _aligned(whh_f.float()), _aligned(whh_b.float())
+    gout, out = aligned(gout.to(dtype)), aligned(out)
+    gates, cs = aligned(gates), aligned(cs)
+    w = pack.w_hh if name == "cluster_fma" else _torch_layout_whh(pack)
+    code = BACKWARD_CODES[name]
     dxp = torch.empty((2, B, T, 4 * H), dtype=torch.float32, device=dev)
     dwhh = torch.empty((2, 4 * H, H), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (lib.pepper_bilstm_train_backward_scratch(code, B, T, H),),
+        dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pepper_bilstm_train_backward(
-            gout.data_ptr(), gates.data_ptr(), cs.data_ptr(), out.data_ptr(),
-            whh_f.data_ptr(), whh_b.data_ptr(), dxp.data_ptr(),
-            dwhh.data_ptr(), B, T, H, _DTYPE_CODES[dtype], stream)
+            code, gout.data_ptr(), gates.data_ptr(), cs.data_ptr(),
+            out.data_ptr(), w[0].data_ptr(), w[1].data_ptr(), dxp.data_ptr(),
+            dwhh.data_ptr(), scratch.data_ptr(), B, T, H,
+            _DTYPE_CODES[dtype], stream)
     if err != 0:
-        raise RuntimeError(f"fused biLSTM training backward launch failed: "
-                           f"error {err}")
+        raise RuntimeError(f"fused biLSTM training backward {name!r} launch "
+                           f"failed: error {err}")
     train_bwd_launches += 1
+    bwd_kernel_launches[name] += 1
     return dxp, dwhh
-
-
-def bilstm_train_backward(gout, gates, cs, out, whh_f, whh_b):
-    """K4 for CUDA tensors, its plain version for CPU tensors."""
-    if out.is_cuda:
-        return bilstm_train_backward_kernel(gout, gates, cs, out, whh_f,
-                                            whh_b)
-    return bilstm_train_backward_plain(gout, gates, cs, out, whh_f, whh_b)
 
 
 class _FusedBiLSTMTrain(torch.autograd.Function):
@@ -560,6 +584,7 @@ class _FusedBiLSTMTrain(torch.autograd.Function):
                                                       residuals=True))
             out, gates, cs = bilstm_train_forward_packed(
                 pack, *packed_projections(pack, x))
+            ctx.pack = pack              # K4 reads the forward's pack
         else:
             out, gates, cs = bilstm_train_forward_plain(
                 *raw_projections(params, x), params["weight_hh_l0"].t(),
@@ -572,9 +597,13 @@ class _FusedBiLSTMTrain(torch.autograd.Function):
     def backward(ctx, gout):
         x, out, gates, cs, *weights = ctx.saved_tensors
         params = dict(zip(_PARAM_NAMES, weights))
-        dxp, dwhh = bilstm_train_backward(
-            gout, gates, cs, out, params["weight_hh_l0"],
-            params["weight_hh_l0_reverse"])
+        if out.is_cuda:
+            dxp, dwhh = bilstm_train_backward_kernel(ctx.pack, gout, gates,
+                                                     cs, out)
+        else:
+            dxp, dwhh = bilstm_train_backward_plain(
+                gout, gates, cs, out, params["weight_hh_l0"],
+                params["weight_hh_l0_reverse"])
         G = dxp.shape[-1]
         x2 = x.reshape(-1, x.shape[-1]).float()
         grads, dx = {}, None

@@ -197,7 +197,7 @@ def test_first_step_is_masked_with_one_timestep():
         pt["weight_hh_l0_reverse"].t(), fl.layer_biases(pt))
     i, f, g, o = gates.chunk(4, dim=-1)
     assert torch.allclose(cs, i * g)
-    dxp, dwhh = fl.bilstm_train_backward(
+    dxp, dwhh = fl.bilstm_train_backward_plain(
         torch.from_numpy(weight), gates, cs, out, pt["weight_hh_l0"],
         pt["weight_hh_l0_reverse"])
     assert not dwhh.any()
@@ -227,15 +227,14 @@ def test_cpu_tensors_never_launch_and_the_kernels_reject_them():
     assert (fl.launches, fl.train_fwd_launches,
             fl.train_bwd_launches) == before
     xp = torch.zeros(2, 5, 128)
-    w = torch.zeros(32, 128)
+    pack = fl.pack_bilstm(_to_torch(params), "generic")
     with pytest.raises(ValueError, match="CUDA"):
-        fl.bilstm_train_forward_packed(
-            fl.pack_bilstm(_to_torch(params), "generic"), xp, xp)
+        fl.bilstm_train_forward_packed(pack, xp, xp)
     out = torch.zeros(2, 5, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fl.bilstm_train_backward_kernel(
-            out, torch.zeros(2, 2, 5, 128), torch.zeros(2, 2, 5, 32), out,
-            w.t(), w.t())
+            pack, out, torch.zeros(2, 2, 5, 128), torch.zeros(2, 2, 5, 32),
+            out)
     assert (fl.train_fwd_launches, fl.train_bwd_launches) == before[1:]
 
 
@@ -329,3 +328,150 @@ def test_pack_cache_follows_an_optimizer_step():
 ])
 def test_select_kernel_for_the_training_forward(B, T, H, dtype, want):
     assert fl.select_kernel(B, T, H, dtype, residuals=True) == want
+
+
+# ------------------------------------------- K4's cluster pair, emulated
+def _dgates(gates, cs, gout_t, dh, dc, first, t, t_prev, d):
+    """One reverse step of K4 for the rows given: (dgates [n,4,H], dc)."""
+    i, f, g, o = gates[d, :, t].chunk(4, dim=-1)
+    c_prev = torch.zeros_like(dh) if first else cs[d, :, t_prev]
+    dh_tot = gout_t + dh
+    tc = torch.tanh(cs[d, :, t])
+    dc_tot = dc + dh_tot * o * (1.0 - tc * tc)
+    dgates = torch.stack([dc_tot * g * i * (1.0 - i),
+                          dc_tot * c_prev * f * (1.0 - f),
+                          dc_tot * i * (1.0 - g * g),
+                          dh_tot * tc * o * (1.0 - o)], dim=1)
+    return dgates, dc_tot * f
+
+
+def _rank_order_dh(pack, d, dgates):
+    """dh = dgates @ W_hh as the cluster computes it: block r forms the
+    partial of its 32 units' four gates (pack columns 128r.., 4u+q) against
+    its W_hh^T slice, and the H/32 partials are summed in rank order."""
+    n, _, H = dgates.shape
+    w = pack.w_hh[d].float()                                  # [H, 4H]
+    dh = None
+    for r in range(H // 32):
+        own = dgates[:, :, 32 * r:32 * (r + 1)].transpose(1, 2).reshape(n, 128)
+        part = own @ w[:, 128 * r:128 * (r + 1)].t()          # [n, H]
+        dh = part if dh is None else dh + part
+    return dh
+
+
+def _dwhh_chunk_rows(B, T, H):
+    """The rows of (b, t) per chunk of the split dW_hh kernel
+    (csrc/fused_lstm_bwd_cluster.cuh::dwhh_split)."""
+    units = 64 if H == 64 else 128
+    tiles = (4 * H // 128) * (H // units) * 2
+    want = max(1, 256 // tiles)
+    rows = -(-B * T // want)
+    return -(-rows // 16) * 16
+
+
+def _emulate_cluster_backward(pack, gout, gates, cs, out):
+    """K4's cluster pair as the kernels run it: 16-row tiles, the partials
+    summed in rank order, no product at a direction's first forward step;
+    dW_hh over fixed chunks of (b, t), summed in chunk order."""
+    B, T, H2 = gout.shape
+    H = H2 // 2
+    dxp = torch.zeros(2, B, T, 4 * H)
+    dwhh = torch.zeros(2, 4 * H, H)
+    for d in range(2):
+        for b0 in range(0, B, 16):
+            rows = slice(b0, min(B, b0 + 16))
+            sub = (gates[:, rows], cs[:, rows])
+            dh = torch.zeros(rows.stop - b0, H)
+            dc = torch.zeros_like(dh)
+            for s in range(T):
+                t = s if d else T - 1 - s
+                dgates, dc = _dgates(*sub, gout[rows, t, d * H:(d + 1) * H],
+                                     dh, dc, s == T - 1, t,
+                                     t + 1 if d else t - 1, d)
+                dxp[d, rows, t] = dgates.reshape(-1, 4 * H)
+                if s < T - 1:
+                    dh = _rank_order_dh(pack, d, dgates)
+        h_prev = torch.zeros(B, T, H)
+        if d:
+            h_prev[:, :-1] = out[:, 1:, H:]
+        else:
+            h_prev[:, 1:] = out[:, :-1, :H]
+        dg_rows = dxp[d].reshape(B * T, 4 * H)
+        hp_rows = h_prev.reshape(B * T, H)
+        step = _dwhh_chunk_rows(B, T, H)
+        for n0 in range(0, B * T, step):
+            dwhh[d] += dg_rows[n0:n0 + step].t() @ hp_rows[n0:n0 + step]
+    return dxp, dwhh
+
+
+@pytest.mark.parametrize("H", [256, 64])
+def test_k4_partials_in_rank_order_equal_the_full_product(H):
+    """A random 16-row tile: the per-block partials of the cluster pack's
+    slices, summed in rank order, are dgates @ W_hh."""
+    rng = np.random.default_rng(13 + H)
+    params = _to_torch(_params(rng, 6, H))
+    pack = fl.pack_bilstm(params, "cluster_fma")
+    dgates = torch.from_numpy(rng.standard_normal((16, 4, H)).astype(
+        np.float32))
+    for d, w in enumerate((params["weight_hh_l0"],
+                           params["weight_hh_l0_reverse"])):
+        got = _rank_order_dh(pack, d, dgates)
+        want = dgates.reshape(16, 4 * H) @ w
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,H", [(20, 5, 64), (16, 3, 128), (3, 1, 64)])
+def test_emulated_cluster_backward_equals_plain(B, T, H):
+    """The cluster pair's scheme over all steps (a ragged second tile, and
+    T=1 where no step exchanges) against K4's plain version."""
+    params, x, weight = _case(14 + B, B, T, 6, H)
+    pt = _to_torch(params)
+    out, gates, cs = fl.bilstm_train_forward_plain(
+        *fl.raw_projections(pt, torch.from_numpy(x)), pt["weight_hh_l0"].t(),
+        pt["weight_hh_l0_reverse"].t(), fl.layer_biases(pt))
+    gout = torch.from_numpy(weight)
+    pack = fl.pack_bilstm(pt, "cluster_fma")
+    got = _emulate_cluster_backward(pack, gout, gates, cs, out)
+    want = fl.bilstm_train_backward_plain(gout, gates, cs, out,
+                                          pt["weight_hh_l0"],
+                                          pt["weight_hh_l0_reverse"])
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-5)
+    np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), atol=1e-4)
+
+
+def test_generic_backward_reads_torch_rows_gathered_from_the_pack():
+    """The generic pair reads W_hh in torch's row order, gathered from the
+    forward's pack: the gather returns W_hh exactly."""
+    params = _to_torch(_params(np.random.default_rng(15), 6, 32))
+    pack = fl.pack_bilstm(params, "generic")
+    w_f, w_b = fl._torch_layout_whh(pack)
+    assert torch.equal(w_f, params["weight_hh_l0"])
+    assert torch.equal(w_b, params["weight_hh_l0_reverse"])
+
+
+@pytest.mark.parametrize("B,T,H,dtype,want", [
+    (64, 33, 256, torch.float32, "cluster_fma"),     # the trainer's step
+    (512, 33, 256, torch.float32, "cluster_fma"),    # the JAX trainer's
+    (8192, 33, 256, torch.float32, "cluster_fma"),   # no batch threshold
+    (16385, 2, 128, torch.float32, "cluster_fma"),
+    (37, 21, 256, torch.bfloat16, "cluster_fma"),    # HP window, ragged
+    (5, 1, 128, torch.float32, "cluster_fma"),
+    (1, 2, 64, torch.float32, "cluster_fma"),
+    (17, 3, 32, torch.float32, "generic"),
+    (15, 4, 192, torch.float32, "generic"),
+    (6, 12, 16, torch.bfloat16, "generic"),
+])
+def test_select_backward_kernel(B, T, H, dtype, want):
+    assert fl.select_backward_kernel(B, T, H, dtype) == want
+
+
+@pytest.mark.parametrize("B,T,H,dtype,error", [
+    (4, 3, 30, torch.float32, ValueError),           # not a multiple of 4
+    (4, 3, 512, torch.float32, ValueError),
+    (0, 3, 64, torch.float32, ValueError),
+    (4, 0, 64, torch.float32, ValueError),
+    (4, 3, 64, torch.float16, TypeError),
+])
+def test_select_backward_kernel_rejects(B, T, H, dtype, error):
+    with pytest.raises(error):
+        fl.select_backward_kernel(B, T, H, dtype)

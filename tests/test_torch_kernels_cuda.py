@@ -207,87 +207,136 @@ def test_bilstm_kernel_rejects_what_it_does_not_take(cuda_device):
     assert fl.launches == before
 
 
-def _gru_inputs(device, dtype, B, T, F, H, seed):
-    """(xp_f, xp_b, W_hh^T f/b, b_hh f/b, h0 f/b) from a seeded biGRU layer
-    with torch's default init, a random input and a nonzero h0."""
+def _gru_layer(device, dtype, F, H, seed):
+    """A biGRU layer's parameters with torch's default init scale."""
     g = torch.Generator().manual_seed(seed)
 
     def u(*shape):
         return ((torch.rand(*shape, generator=g) * 2 - 1) / H ** 0.5).to(
             device, dtype)
 
-    params = {}
-    for sfx in ("", "_reverse"):
-        params["weight_ih_l0" + sfx] = u(3 * H, F)
-        params["bias_ih_l0" + sfx] = u(3 * H)
-    x = torch.randn(B, T, F, generator=g).to(device, dtype)
-    xp_f, xp_b = fg.input_projections(params, x)
-    h0 = (torch.randn(2, B, H, generator=g) * 0.5).to(device, dtype)
-    return (xp_f, xp_b, u(H, 3 * H), u(H, 3 * H), u(3 * H).float(),
-            u(3 * H).float(), h0[0], h0[1])
+    return {name + sfx: u(3 * H, F) if name == "weight_ih_l0" else
+            u(3 * H, H) if name == "weight_hh_l0" else u(3 * H)
+            for sfx in ("", "_reverse")
+            for name in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0",
+                         "bias_hh_l0")}
+
+
+def _gru_plain(params, xp_f, xp_b, h0):
+    return fg.bigru_recurrence_plain(
+        xp_f, xp_b, params["weight_hh_l0"].t(),
+        params["weight_hh_l0_reverse"].t(), params["bias_hh_l0"],
+        params["bias_hh_l0_reverse"], h0[:, 0], h0[:, 1])
+
+
+# the consensus batch, a ragged batch, the 16-row mma tile's edges, one
+# step, both widths the polish model could use, and a width only the
+# generic kernel takes
+GRU_SHAPES = [(128, 100, 10, 128), (128, 100, 256, 128), (37, 100, 10, 128),
+              (1, 1, 10, 64), (15, 7, 10, 128), (16, 3, 256, 128),
+              (17, 100, 10, 64), (5, 1, 256, 128), (9, 40, 10, 40)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
                                         (torch.float32, 1e-4)])
-@pytest.mark.parametrize("B,T,F,H", [(128, 100, 10, 128),
-                                     (128, 100, 256, 128),
-                                     (37, 100, 10, 128), (5, 1, 256, 128),
-                                     (9, 40, 10, 64)])
+@pytest.mark.parametrize("B,T,F,H", GRU_SHAPES)
 def test_bigru_kernel_matches_plain(cuda_device, dtype, atol, B, T, F, H):
-    """bf16 tolerance: h is rounded to bf16 each step and the two versions
-    sum the product in different orders; checked on out and the final h."""
-    args = _gru_inputs(cuda_device, dtype, B, T, F, H, seed=B + T + F)
-    before = fg.launches
-    got_out, got_h = fg.bigru_recurrence(*args)
+    """The layer path (the selected kernel's pack, h0 as [B,2,H]) against
+    the plain version; the selected kernel's counter moves; a second call
+    gives identical bits and reuses the cached pack. bf16 tolerance: h is
+    rounded to bf16 each step and the two versions sum the product in
+    different orders; checked on out and the final h."""
+    params = _gru_layer(cuda_device, dtype, F, H, seed=B + T + F)
+    g = torch.Generator().manual_seed(B)
+    x = torch.randn(B, T, F, generator=g).to(cuda_device, dtype)
+    h0 = (torch.randn(B, 2, H, generator=g) * 0.5).to(cuda_device, dtype)
+    name = fg.select_kernel(B, T, H, dtype)
+    before = (fg.launches, fg.kernel_launches[name])
+    got = fg.fused_bigru(params, x, h0)
     torch.cuda.synchronize()
-    assert fg.launches == before + 1
-    want_out, want_h = fg.bigru_recurrence_plain(*args)
-    assert got_out.dtype == got_h.dtype == dtype
-    assert got_h.shape == (B, 2, H)
-    for got, want in ((got_out, want_out), (got_h, want_h)):
-        err = (got.float() - want.float()).abs().max().item()
+    assert (fg.launches, fg.kernel_launches[name]) == (before[0] + 1,
+                                                       before[1] + 1)
+    builds = fg.pack_builds
+    again = fg.fused_bigru(params, x, h0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert fg.pack_builds == builds
+    want = _gru_plain(params, *fg.input_projections(params, x), h0)
+    assert got[0].dtype == got[1].dtype == dtype
+    assert got[1].shape == (B, 2, H)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a.float()).all())
+        err = (a.float() - b.float()).abs().max().item()
         assert err <= atol, err
 
 
 @pytest.mark.cuda
-def test_bigru_kernel_takes_strided_and_offset_inputs(cuda_device):
-    """A time-major view, an xp slice at an odd offset, W_hh^T as a
-    transposed view and h0 as a strided slice of [B,2,H] give the same
-    result as contiguous copies."""
+def test_generic_bigru_kernel_takes_the_mma_kernels_shapes(cuda_device):
+    """The generic kernel stays callable in bf16 at the polish shape (the
+    timing comparison uses it)."""
+    params = _gru_layer(cuda_device, torch.bfloat16, 10, 128, seed=5)
+    x = torch.randn(37, 20, 10, device=cuda_device).bfloat16()
+    h0 = torch.randn(37, 2, 128, device=cuda_device).bfloat16()
+    xp = fg.input_projections(params, x)
+    before = fg.kernel_launches["generic"]
+    got = fg.bigru_recurrence_packed(fg.pack_bigru(params, "generic"), *xp,
+                                     h0)
+    torch.cuda.synchronize()
+    assert fg.kernel_launches["generic"] == before + 1
+    want = _gru_plain(params, *xp, h0)
+    for a, b in zip(got, want):
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [("mma", torch.bfloat16),
+                                        ("generic", torch.float32)])
+def test_bigru_kernel_takes_strided_and_offset_inputs(cuda_device, name,
+                                                      dtype):
+    """A time-major view, an xp slice at an odd offset and h0 as a strided
+    view give the same result as contiguous copies."""
     g = torch.Generator().manual_seed(2)
     B, T, H = 9, 7, 64
-    big = torch.randn(T, B, 3 * H + 1, generator=g).to(cuda_device)
+    big = torch.randn(T, B, 3 * H + 1, generator=g).to(cuda_device, dtype)
     xp_f = big[..., 1:].transpose(0, 1)            # [B,T,3H], not contiguous
-    flat = torch.randn(B * T * 3 * H + 1, generator=g).to(cuda_device)
-    xp_b = flat[1:].view(B, T, 3 * H)              # contiguous, base 4 B off
-    w = (torch.rand(2, 3 * H, H, generator=g) / 8).to(cuda_device)
-    b = (torch.rand(2, 3 * H, generator=g) / 8).to(cuda_device)
-    h0 = torch.randn(B, 2, H, generator=g).to(cuda_device)
-    got = fg.bigru_recurrence(xp_f, xp_b, w[0].t(), w[1].t(), b[0], b[1],
-                              h0[:, 0], h0[:, 1])
-    want = fg.bigru_recurrence(xp_f.contiguous(), xp_b.clone(),
-                               w[0].t().contiguous(), w[1].t().contiguous(),
-                               b[0].clone(), b[1].clone(),
-                               h0[:, 0].contiguous(), h0[:, 1].contiguous())
+    flat = torch.randn(B * T * 3 * H + 1, generator=g).to(cuda_device, dtype)
+    xp_b = flat[1:].view(B, T, 3 * H)              # contiguous, base off
+    assert xp_b.is_contiguous() and xp_b.data_ptr() % 16
+    h0 = torch.randn(2, B, H, generator=g).to(cuda_device, dtype)
+    params = _gru_layer(cuda_device, dtype, 10, H, seed=3)
+    pack = fg.pack_bigru(params, name)
+    got = fg.bigru_recurrence_packed(pack, xp_f, xp_b, h0.transpose(0, 1))
+    want = fg.bigru_recurrence_packed(pack, xp_f.contiguous(), xp_b.clone(),
+                                      h0.transpose(0, 1).contiguous())
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.cuda
 def test_bigru_kernel_rejects_what_it_does_not_take(cuda_device):
-    def inputs(B, T, H, dtype):
-        xp = torch.zeros(B, T, 3 * H, device=cuda_device, dtype=dtype)
-        w = torch.zeros(H, 3 * H, device=cuda_device, dtype=dtype)
-        b = torch.zeros(3 * H, device=cuda_device)
-        h0 = torch.zeros(B, H, device=cuda_device, dtype=dtype)
-        return xp, xp, w, w, b, b, h0, h0
-
+    params = _gru_layer(cuda_device, torch.float32, 10, 64, seed=4)
+    xp = torch.zeros(2, 3, 3 * 64, device=cuda_device)
+    h0 = torch.zeros(2, 2, 64, device=cuda_device)
     before = fg.launches
     with pytest.raises(ValueError, match="hidden size"):
-        fg.bigru_recurrence(*inputs(2, 3, 256, torch.float32))
+        wide = torch.zeros(2, 3, 3 * 256, device=cuda_device)
+        fg.bigru_recurrence_packed(fg.pack_bigru(params, "generic"), wide,
+                                   wide, torch.zeros(2, 2, 256,
+                                                     device=cuda_device))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        fg.bigru_recurrence(*inputs(2, 3, 32, torch.float16))
+        fg.select_kernel(2, 3, 64, torch.float16)
+    mma = fg.pack_bigru(params, "mma")                  # f32: not mma's
+    with pytest.raises(ValueError, match="does not take"):
+        fg.bigru_recurrence_packed(mma, xp, xp, h0)
+    generic = fg.pack_bigru(params, "generic")
+    with pytest.raises(ValueError, match="do not fit"):
+        fg.bigru_recurrence_packed(generic, xp, xp, h0[:, :1])
+    with pytest.raises(ValueError, match="one dtype"):
+        fg.bigru_recurrence_packed(generic, xp.bfloat16(), xp.bfloat16(), h0)
+    with pytest.raises(ValueError, match="does not take"):    # 40 % 16
+        fg.pack_bigru(_gru_layer(cuda_device, torch.bfloat16, 10, 40,
+                                 seed=6), "mma")
     assert fg.launches == before
 
 
@@ -336,43 +385,102 @@ def test_bilstm_train_forward_kernel_matches_plain(cuda_device, dtype, atol,
         assert err <= atol, (name, err)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,T,H", TRAIN_SHAPES)
-def test_bilstm_train_backward_kernel_matches_plain(cuda_device, dtype, B, T,
-                                                    H):
-    """K4 on the plain forward's residuals: dxp and dW_hh. Both versions
-    compute in f32 from the same residuals, so only the order of the sums
-    differs: 1e-4 on dxp; dW_hh sums B*T products, 1e-3 relative to its
-    largest entry."""
-    xp, w = _train_inputs(cuda_device, dtype, B, T, H, seed=B + T + 1)
+def _k4_case(device, dtype, B, T, H, seed):
+    """(pack, gout, gates, cs, out, W_hh f/b): the plain forward's residuals
+    of a random layer and the pack its forward kernel would use."""
+    xp, w = _train_inputs(device, dtype, B, T, H, seed=seed)
     out, gates, cs = fl.bilstm_train_forward_plain(*xp, w[0].t(), w[1].t())
-    g = torch.Generator().manual_seed(3)
-    gout = torch.randn(B, T, 2 * H, generator=g).to(cuda_device, dtype)
-    before = fl.train_bwd_launches
-    dxp, dwhh = fl.bilstm_train_backward(gout, gates, cs, out, w[0].float(),
-                                         w[1].float())
-    torch.cuda.synchronize()
-    assert fl.train_bwd_launches == before + 1
+    pack = fl.pack_weights(fl.select_kernel(B, T, H, dtype, residuals=True),
+                           w[0], w[1], None)
+    g = torch.Generator().manual_seed(seed)
+    gout = torch.randn(B, T, 2 * H, generator=g).to(device, dtype)
+    return pack, gout, gates, cs, out, w
+
+
+def _assert_k4_matches_plain(got, case):
+    """dxp within 1e-4; dW_hh, which sums B*T products, within 1e-3 of its
+    largest entry: both versions compute in f32 from the same residuals,
+    so only the order of the sums differs."""
+    pack, gout, gates, cs, out, w = case
     want_dxp, want_dwhh = fl.bilstm_train_backward_plain(
         gout, gates, cs, out, w[0].float(), w[1].float())
-    assert (dxp - want_dxp).abs().max().item() <= 1e-4
+    assert (got[0] - want_dxp).abs().max().item() <= 1e-4
     scale = max(1.0, want_dwhh.abs().max().item())
-    assert (dwhh - want_dwhh).abs().max().item() <= 1e-3 * scale
+    assert (got[1] - want_dwhh).abs().max().item() <= 1e-3 * scale
+
+
+# the trainer's batch, a ragged HP window, the 16-row tile's edges (below
+# one tile, one tile, one row past it, one row past many), one step, every
+# hidden size the cluster pair takes, shapes only the generic pair takes
+# (H=32 and 192), and a batch past the generic forward's 640 rows (a
+# `generic` pack into the cluster pair)
+K4_SHAPES = [(64, 33, 256), (37, 21, 256), (1, 1, 256), (5, 1, 128),
+             (16, 3, 128), (17, 3, 64), (1, 2, 256), (513, 3, 256),
+             (9, 12, 64), (17, 3, 32), (15, 4, 192), (1100, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,H", K4_SHAPES)
+def test_bilstm_train_backward_kernel_matches_plain(cuda_device, dtype, B, T,
+                                                    H):
+    """K4, the selected pair, on the plain forward's residuals: dxp and
+    dW_hh; its counter moves; two calls give identical bits (no atomics)."""
+    case = _k4_case(cuda_device, dtype, B, T, H, seed=B + T + 1)
+    name = fl.select_backward_kernel(B, T, H, dtype)
+    before = (fl.train_bwd_launches, fl.bwd_kernel_launches[name])
+    got = fl.bilstm_train_backward_kernel(*case[:5])
+    again = fl.bilstm_train_backward_kernel(*case[:5])
+    torch.cuda.synchronize()
+    assert (fl.train_bwd_launches, fl.bwd_kernel_launches[name]) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _assert_k4_matches_plain(got, case)
+
+
+@pytest.mark.cuda
+def test_generic_backward_pair_takes_the_cluster_shapes(cuda_device):
+    """The generic pair stays callable where the cluster pair is selected
+    (the timing comparison uses it), from the same pack."""
+    case = _k4_case(cuda_device, torch.float32, 37, 9, 256, seed=8)
+    assert fl.select_backward_kernel(37, 9, 256, torch.float32) == \
+        "cluster_fma"
+    before = fl.bwd_kernel_launches["generic"]
+    got = fl.launch_backward("generic", *case[:5])
+    torch.cuda.synchronize()
+    assert fl.bwd_kernel_launches["generic"] == before + 1
+    _assert_k4_matches_plain(got, case)
+
+
+@pytest.mark.cuda
+def test_cluster_backward_alternates_between_hidden_sizes(cuda_device):
+    """One cluster kernel per hidden size, but the dW_hh kernel and the
+    launcher's tables are shared: a wide layer must still launch after a
+    narrow one."""
+    for H in (256, 128, 256, 64, 256):
+        case = _k4_case(cuda_device, torch.float32, 21, 3, H, seed=H)
+        assert fl.select_backward_kernel(21, 3, H, torch.float32) == \
+            "cluster_fma"
+        _assert_k4_matches_plain(fl.bilstm_train_backward_kernel(*case[:5]),
+                                 case)
 
 
 @pytest.mark.cuda
 def test_bilstm_train_backward_kernel_is_deterministic(cuda_device):
-    """No atomics: two calls on the same inputs give the same bits."""
+    """No atomics: two calls on the K3 forward's residuals give the same
+    bits, with either pair."""
     B, T, H = 100, 33, 256
     xp, w = _train_inputs(cuda_device, torch.float32, B, T, H, seed=8)
-    out, gates, cs = _k3(*xp, w[0].t(), w[1].t())
+    pack = fl.pack_weights("cluster_fma", w[0], w[1], None)
+    out, gates, cs = fl.bilstm_train_forward_packed(
+        pack, xp[0][..., pack.xp_order], xp[1][..., pack.xp_order])
     gout = torch.randn(B, T, 2 * H, device=cuda_device)
-    first = fl.bilstm_train_backward(gout, gates, cs, out, w[0], w[1])
-    second = fl.bilstm_train_backward(gout, gates, cs, out, w[0], w[1])
-    torch.cuda.synchronize()
-    assert torch.equal(first[0], second[0])
-    assert torch.equal(first[1], second[1])
+    for name in ("cluster_fma", "generic"):
+        first = fl.launch_backward(name, pack, gout, gates, cs, out)
+        second = fl.launch_backward(name, pack, gout, gates, cs, out)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda
@@ -397,9 +505,9 @@ def test_bilstm_train_kernels_take_strided_and_offset_inputs(cuda_device):
     out, gates, cs = want
     gout = torch.randn(T, B, 2 * H, generator=g).to(cuda_device).transpose(
         0, 1)
-    got = fl.bilstm_train_backward(gout, gates, cs, out, w[0], w[1])
-    want = fl.bilstm_train_backward(gout.contiguous(), gates, cs, out,
-                                    w[0].contiguous(), w[1].contiguous())
+    got = fl.bilstm_train_backward_kernel(pack, gout, gates, cs, out)
+    want = fl.bilstm_train_backward_kernel(pack, gout.contiguous(), gates,
+                                           cs, out)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -454,7 +562,18 @@ def test_bilstm_train_kernels_reject_what_they_do_not_take(cuda_device):
         _k3(xp[..., :64].half(), xp[..., :64].half(), w[:16, :64].half(),
             w[:16, :64].half())
     out = torch.zeros(2, 3, 32, device=cuda_device)
+    pack = fl.pack_weights("generic", w[:64, :16], w[:64, :16], None)
     with pytest.raises(ValueError, match="bad residuals"):
-        fl.bilstm_train_backward(out, xp[None, ..., :64], out[None], out,
-                                 w[:64, :16], w[:64, :16])
+        fl.bilstm_train_backward_kernel(pack, out, xp[None, ..., :64],
+                                        out[None], out)
+    mma = fl.pack_weights("cluster_mma", w[:64, :16], w[:64, :16], None)
+    with pytest.raises(ValueError, match="does not fit"):
+        fl.bilstm_train_backward_kernel(
+            mma, out, torch.zeros(2, 2, 3, 64, device=cuda_device),
+            torch.zeros(2, 2, 3, 16, device=cuda_device), out)
+    with pytest.raises(ValueError, match="does not take"):
+        fl.launch_backward(
+            "cluster_fma", pack, out,
+            torch.zeros(2, 2, 3, 64, device=cuda_device),
+            torch.zeros(2, 2, 3, 16, device=cuda_device), out)
     assert (fl.train_fwd_launches, fl.train_bwd_launches) == before
