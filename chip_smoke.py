@@ -54,7 +54,21 @@ at once, into the git-ignored build/ directory, then:
      evals, that the loss fell, and that the checkpoint resumes with its
      optimizer state; prints ms per step, its busy and idle share, the
      device time by kernel (K4's share) and the peak memory;
- 11. prints one JSON line describing every ported kernel.
+ 11. runs the streamed call_variant --use_hp_info (21x48 images, a
+     48-feature classifier) on a synthetic ~60 kb dataset with
+     haplotype-tagged reads on the card (bf16, then f32) and on the CPU
+     (f32), checks that K1 was launched and that CUDA f32 calls the CPU's
+     records, and merges a DeepVariant VCF into the output with
+     merge_variants (positional overlay, indexed);
+ 12. trains the polish model on labeled images encoded in memory from a
+     synthetic draft with a truth BAM: 3 window steps at batch 64 on the
+     card held against the CPU, then one epoch of train_polish's loop with
+     an eval, checking that K2 was launched twice per eval window and never
+     under grad, that the stats files and checkpoints exist and that a
+     resume restores the optimizer state, and that a CUDA fused_bigru under
+     grad raises; prints ms per window step, its busy and idle share and
+     the peak memory;
+ 13. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -688,7 +702,7 @@ def phase_polish_model(dev):
     cpu_params = params_from_jax(tree)
     with torch.inference_mode():
         want_logits, want_h = polish_forward(
-            cpu_params, x8[:, :WINDOW].float(), h0)
+            cpu_params, x8[:, :WINDOW].float(), h0, fused_rnn=True)
         solid = vote_margins(window_votes(cpu_params, x8.float())) > 1e-4
     want_labels, want_phred = make_window_vote_fn(
         tree, torch.device("cpu"), torch.float32)(x8)
@@ -697,7 +711,8 @@ def phase_polish_model(dev):
         with torch.inference_mode():
             logits, hid = polish_forward(
                 params_from_jax(tree, dev, dtype),
-                x8[:, :WINDOW].to(dev).to(dtype), h0.to(dev, dtype))
+                x8[:, :WINDOW].to(dev).to(dtype), h0.to(dev, dtype),
+                fused_rnn=True)
         labels, phred = make_window_vote_fn(tree, dev, dtype)(x8.to(dev))
         labels, phred = labels.cpu(), phred.cpu()
         check(logits.shape == want_logits.shape
@@ -1608,6 +1623,336 @@ def phase_trainer(dev, work_dir, name):
     return counts
 
 
+# -------------------------------------------------------------- phase 11
+def _write_dv_vcf(path, records, contigs):
+    """A DeepVariant-style VCF (AD with the ref depth first) at every other
+    record of `records`."""
+    lines = ["##fileformat=VCFv4.2"]
+    lines += [f"##contig=<ID={c},length={n}>" for c, n in contigs]
+    lines.append("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\tDV")
+    for r in records[::2]:
+        lines.append(f"{r.contig}\t{r.pos + 1}\t.\t{r.ref}\t"
+                     f"{','.join(r.alts) or '.'}\t40\tPASS\t.\t"
+                     f"GT:GQ:DP:AD:VAF\t0/1:30:30:15,15:0.5")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return {(r.contig, r.pos) for r in records[::2]}
+
+
+def phase_hp_end_to_end(dev, work_dir, name):
+    from pepper_tpu_torch.io.vcf import read_vcf
+    from pepper_tpu_torch.models.checkpoint import save_checkpoint
+    from pepper_tpu_torch.ops import fused_lstm as fl
+    from pepper_tpu_torch.options import PipelineConfig
+    from pepper_tpu_torch.pipelines.call_variant import call_variant
+    from pepper_tpu_torch.pipelines.merge_variants import merge_variants
+    from pepper_tpu_torch.presets import set_parameters
+    from pepper_tpu_torch.runtime import streaming
+    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
+                                              simulate_reads, write_dataset)
+
+    genome_len = 60_000
+    t0 = time.time()
+    genome = random_genome(genome_len, seed=111)
+    variants = plant_variants(dict(genome), 60, 12, 12, seed=112)
+    fasta, bam = write_dataset(work_dir, genome, simulate_reads(
+        genome, variants, coverage=30, seed=113, hp_tags=True))
+    model = os.path.join(work_dir, "hp_model.npz")
+    save_checkpoint(model, numpy_variant_tree(114, features=48, window=21),
+                    {"epochs": 0})
+    print(f"HP dataset: {genome_len} bp, {len(variants)} planted variants, "
+          f"haplotype-tagged reads at coverage 30; classifier 21x48 -> "
+          f"biLSTM {H} x2 -> 5x Linear 512 -> 3 [{time.time() - t0:.1f}s]",
+          flush=True)
+
+    def run(label, device, precision):
+        os.environ["PEPPER_TPU_PRECISION"] = precision
+        out = os.path.join(work_dir, label) + "/"
+        config = set_parameters(PipelineConfig(
+            bam=bam, fasta=fasta, output_dir=out, model_path=model,
+            ont_r9_guppy5_sup=True, threads=4, region_size=20000,
+            use_hp_info=True, device=device))
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        call_variant(config)
+        return out, time.time() - t
+
+    try:
+        fl.launches = 0                       # count the main path only
+        out_bf16, wall_bf16 = run("cuda_bf16", "cuda", "bf16")
+        launches = fl.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches > 0, "the streamed HP run on the card never launched "
+              "K1")
+        runner = streaming.get_device_runner(model, 16384, "cuda")
+        w_ih = runner._params["encoder"]["weight_ih_l0"]
+        check(tuple(w_ih.shape) == (4 * H, 48), f"the HP runner's first "
+              f"W_ih is {tuple(w_ih.shape)}, expected ({4 * H}, 48)")
+        x8 = torch.from_numpy(images(np.random.default_rng(115),
+                                     runner.batch, 21, 48)).to(dev)
+        forward_ms = median_ms(lambda: runner.forward(x8), reps=10)
+        rec_bf16 = _call_records(out_bf16)
+        out_cpu, wall_cpu = run("cpu_f32", "cpu", "f32")
+        rec_cpu = _call_records(out_cpu)
+        out_f32, wall_f32 = run("cuda_f32", "cuda", "f32")
+        rec_f32 = _call_records(out_f32)
+    finally:
+        os.environ.pop("PEPPER_TPU_PRECISION", None)
+    diff_bf16 = sorted(rec_bf16 ^ rec_cpu)
+    diff_f32 = len(rec_f32 ^ rec_cpu)
+    mbp = genome_len / 1e6
+    print(f"e2e streamed call_variant --use_hp_info on {name}: cuda bf16 "
+          f"wall {wall_bf16:.2f}s ({mbp / wall_bf16:.4f} Mbp/s), K1 launches "
+          f"{launches}, device forward {forward_ms:.2f} ms per "
+          f"{runner.batch}-row 21x48 batch (CUDA events, median of 10), "
+          f"peak CUDA memory {peak_gb:.2f} GB; cuda f32 wall "
+          f"{wall_f32:.2f}s; cpu f32 wall {wall_cpu:.2f}s", flush=True)
+    print(f"HP VCF records (file, contig, pos, ref, alt, GT): cpu f32 "
+          f"{len(rec_cpu)}, cuda bf16 {len(rec_bf16)} ({len(diff_bf16)} "
+          f"differ from cpu f32: {diff_bf16[:10]}), cuda f32 {len(rec_f32)} "
+          f"({diff_f32} differ)", flush=True)
+    check(len(rec_cpu) > 0, "the HP CPU run called no variants")
+    check(diff_f32 == 0, "HP: cuda f32 and cpu f32 call different records")
+
+    # merge_variants: a DeepVariant VCF overlays the FULL VCF (every
+    # candidate the random classifier called) positionally
+    full = os.path.join(out_bf16, "PEPPER_VARIANT_FULL.vcf.gz")
+    base = read_vcf(full)
+    dv_path = os.path.join(work_dir, "deepvariant.vcf")
+    dv_keys = _write_dv_vcf(dv_path, base, [(c, len(s)) for c, s in genome])
+    merge_dir = os.path.join(work_dir, "merged")
+    os.makedirs(merge_dir)
+    merged_path = merge_variants(full, dv_path, None, None, merge_dir,
+                                 "Sample")
+    merged = read_vcf(merged_path)
+    tags = [r.samples[0][r.format.index("C")] for r in merged]
+    check(os.path.isfile(merged_path + ".tbi"), "merge_variants wrote no "
+          ".tbi")
+    check([(r.contig, r.pos) for r in merged]
+          == [(r.contig, r.pos) for r in base]
+          and tags == ["DV" if (r.contig, r.pos) in dv_keys else "P"
+                       for r in base],
+          "merge_variants did not overlay the DeepVariant records "
+          "positionally")
+    print(f"merge_variants: {len(merged)} records ({tags.count('DV')} C=DV "
+          f"at the {len(dv_keys)} DeepVariant positions, {tags.count('P')} "
+          f"C=P), indexed", flush=True)
+    return launches
+
+
+# -------------------------------------------------------------- phase 12
+def polish_training_images(work_dir):
+    """(uint8 images [N,1000,10], uint8 labels [N,1000], planted
+    corrections) of a synthetic draft: reads carry the true sequence (the
+    corrections as hom-alt edits of the draft) and a truth-to-draft BAM
+    holds one perfect read per contig; the polish encoder in train mode,
+    interval by interval, in memory (no HDF5 store)."""
+    from pepper_tpu_torch.io.bam_reader import BamReader
+    from pepper_tpu_torch.io.bam_writer import BamWriter
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.polish.make_images import (build_polish_intervals,
+                                                     create_polish_summary)
+    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
+                                              simulate_reads_fast,
+                                              write_dataset)
+
+    genome = random_genome(40_000, seed=121)
+    edits = plant_variants(dict(genome), 20, 8, 8, seed=122)
+    edits = [type(v)(v.contig, v.pos, v.ref, v.alt, (1, 1)) for v in edits]
+    draft, bam = write_dataset(work_dir, genome, simulate_reads_fast(
+        genome, edits, coverage=30, read_length=10_000, error_rate=0.02,
+        seed=123))
+    truth_bam = os.path.join(work_dir, "truth.bam")
+    with BamWriter(truth_bam, [(n, len(s)) for n, s in genome]) as bw:
+        for rec in simulate_reads_fast(genome, edits, coverage=1,
+                                       read_length=len(genome[0][1]),
+                                       error_rate=0.0, seed=1, mapq=60):
+            bw.write(rec)
+    xs, ys = [], []
+    with BamReader(bam) as reads, FastaReader(draft) as fa, \
+            BamReader(truth_bam) as truth:
+        for contig, start, end in build_polish_intervals(draft, bam, None):
+            images_i, labels_i, _, _ = create_polish_summary(
+                reads, fa, contig, start, end, train_mode=True,
+                truth_bam=truth, realignment_flag=False)
+            xs += images_i
+            ys += labels_i
+    check(bool(xs), "the train-mode polish encoder produced no image")
+    return (np.asarray(xs).astype(np.uint8), np.asarray(ys).astype(np.uint8),
+            len(edits))
+
+
+def _polish_window_steps(tree, device, x, y, k, lr, wd):
+    """k window steps of the polish trainer from the numpy tree on `device`
+    over the first k windows of one batch, the hidden carried: (losses,
+    updated parameters on the host)."""
+    from pepper_tpu_torch.train import polish_train as pt
+    from pepper_tpu_torch.train import variant_train as vt
+
+    params = vt.trainable(tree, device)
+    step = pt.make_polish_train_step(params, vt.make_optimizer(params, lr,
+                                                               wd))
+    xd = torch.from_numpy(x).to(device).float()
+    yd = torch.from_numpy(y.astype(np.int64)).to(device)
+    hidden = torch.zeros((len(x), 2, PH), device=device)
+    losses = []
+    for i in range(0, 50 * k, 50):
+        hidden, loss = step(xd[:, i:i + WINDOW], yd[:, i:i + WINDOW], hidden)
+        losses.append(float(loss))
+    return losses, {k: p.detach().cpu() for k, p in vt.sorted_leaves(params)}
+
+
+def phase_polish_trainer(dev, work_dir, name):
+    from pepper_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                    load_opt_state,
+                                                    params_from_jax)
+    from pepper_tpu_torch.ops import fused_gru as fg
+    from pepper_tpu_torch.train import polish_train as pt
+    from pepper_tpu_torch.train import variant_train as vt
+
+    t0 = time.time()
+    x8, y8, n_edits = polish_training_images(work_dir)
+    n = len(x8)
+    check(x8.shape[1:] == (1000, 10) and n >= TRAIN_BATCH,
+          f"too few labeled polish images: {x8.shape}")
+    print(f"polish training dataset: 40000 bp draft, {n_edits} planted "
+          f"corrections, 10 kb reads at coverage 30, a truth-to-draft BAM; "
+          f"{n} labeled sequences (labels "
+          f"{np.bincount(y8.ravel(), minlength=5).tolist()}) "
+          f"[{time.time() - t0:.1f}s]", flush=True)
+    tree = numpy_polish_tree(124)
+    lr, wd = 1e-3, 1e-6
+
+    # k=3 window steps at the trainer's batch on the card against the CPU
+    bx, by = x8[:TRAIN_BATCH], y8[:TRAIN_BATCH]
+    losses, after = _polish_window_steps(tree, dev, bx, by, 3, lr, wd)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        want_losses, want_after = _polish_window_steps(tree, "cpu", bx, by, 3,
+                                                       lr, wd)
+    finally:
+        torch.set_num_threads(threads)
+    moved = torch.cat([(after[k] - want_after[k]).abs().flatten()
+                       for k in want_after]) / lr
+    far = float((moved > 0.01).float().mean())
+    print(f"polish train steps: 3 full-width window steps at batch "
+          f"{TRAIN_BATCH} on the card vs the same steps on the CPU (f32, "
+          f"Adam lr {lr:g}, weight decay {wd:g}): losses {losses} vs "
+          f"{want_losses} (tolerance 1e-4 relative); updated parameters "
+          f"differ by at most {float(moved.max()):.3e} lr (tolerance 2 lr), "
+          f"{100 * far:.4f}% of {moved.numel()} by more than 0.01 lr "
+          f"(tolerance 0.1%)", flush=True)
+    check(np.allclose(losses, want_losses, rtol=1e-4, atol=0),
+          "polish train-step losses disagree with the CPU steps")
+    check(float(moved.max()) <= 2.0 and far <= 1e-3,
+          "polish train-step parameters disagree with the CPU steps")
+
+    # F1: K2 has no backward, so a CUDA fused_bigru under grad must raise
+    grad_params = {k: v.requires_grad_() for k, v in params_from_jax(
+        tree, dev)["gru_encoder"].items()}
+    try:
+        fg.fused_bigru(grad_params, torch.zeros(2, WINDOW, 10, device=dev),
+                       torch.zeros(2, 2, PH, device=dev))
+        raised = False
+    except RuntimeError as exc:
+        raised = "no backward" in str(exc)
+    check(raised, "a CUDA fused_bigru under grad did not raise")
+
+    # the main path: train_polish's loop on the card for one epoch with an
+    # eval; every K2 launch is recorded with the grad mode it ran under
+    grad_modes = []
+    real_launch = fg.bigru_recurrence_packed
+
+    def recorded_launch(*args, **kwargs):
+        grad_modes.append(torch.is_grad_enabled())
+        return real_launch(*args, **kwargs)
+
+    model_dir = os.path.join(work_dir, "polish_models")
+    windows = len(range(0, 1000 - WINDOW + 1, 50))
+    steps = (n // TRAIN_BATCH) * windows
+    eval_batches = -(-n // TRAIN_BATCH)
+    fg.bigru_recurrence_packed = recorded_launch
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fg.launches = 0                       # count the main path only
+        t = time.time()
+        best = pt.train_polish_loop((x8, y8), (x8, y8), model_dir,
+                                    batch_size=TRAIN_BATCH, epoch_limit=1,
+                                    lr=lr, weight_decay=wd, seed=5,
+                                    device="cuda")
+        wall = time.time() - t
+        launches = fg.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        fg.bigru_recurrence_packed = real_launch
+    check(launches == 2 * windows * eval_batches and not any(grad_modes),
+          f"the polish eval of {eval_batches} batches launched K2 {launches} "
+          f"times (expected {2 * windows * eval_batches}), under grad "
+          f"{sum(grad_modes)} times (expected 0)")
+    for f in ("train_loss.csv", "test_loss.csv", "confusion_matrix.txt"):
+        check(len(glob.glob(os.path.join(model_dir, "stats_*", f))) == 1,
+              f"the polish trainer wrote no {f}")
+    check(os.path.isfile(os.path.join(model_dir, "PEPPER_POLISH_EPOCH_1.npz"))
+          and os.path.isfile(best), "the polish trainer wrote no checkpoint")
+    params, meta = load_checkpoint(best)
+    saved = load_opt_state(best)
+    check(saved is not None and len(saved) == 3 + 2 * 18
+          and int(saved[2]) == steps, "the polish checkpoint lacks its "
+          "optimizer state")
+    check(all(np.isfinite(v).all() for _, v in vt.sorted_leaves(params)),
+          "the polish checkpoint holds non-finite parameters")
+
+    # resume from the checkpoint with its optimizer state
+    resumed = pt.train_polish_loop((x8, y8), None,
+                                   os.path.join(work_dir, "polish_resumed"),
+                                   batch_size=TRAIN_BATCH, epoch_limit=1,
+                                   lr=lr / 2, weight_decay=wd, seed=6,
+                                   retrain_model_path=best, device="cuda")
+    after_resume = load_opt_state(resumed)
+    check(int(after_resume[2]) == int(saved[2]) + steps
+          and float(after_resume[1]) == np.float32(lr / 2),
+          f"the resumed polish run's optimizer count is "
+          f"{int(after_resume[2])}, expected {int(saved[2]) + steps}, and "
+          f"its learning rate {float(after_resume[1])}, expected {lr / 2}")
+
+    # steady-state window step and its device time
+    trained = vt.trainable(params, dev)
+    step = pt.make_polish_train_step(trained, vt.make_optimizer(trained, lr,
+                                                                wd))
+    xd = torch.from_numpy(x8[:TRAIN_BATCH]).to(dev).float()[:, :WINDOW]
+    yd = torch.from_numpy(y8[:TRAIN_BATCH].astype(np.int64)).to(dev)[
+        :, :WINDOW]
+    h0 = torch.zeros((TRAIN_BATCH, 2, PH), device=dev)
+    step_ms = median_ms(lambda: step(xd, yd, h0))
+    per_kernel = device_breakdown(lambda: step(xd, yd, h0))
+    with open(glob.glob(os.path.join(model_dir, "stats_*",
+                                     "train_loss.csv"))[0]) as fh:
+        epoch_loss = float(fh.read().split(",")[1])
+    print(f"polish trainer on {name}: {steps} window steps at batch "
+          f"{TRAIN_BATCH} ({n // TRAIN_BATCH} batches x {windows} windows) "
+          f"and an eval of {n} sequences in {wall:.2f}s wall; epoch loss "
+          f"{epoch_loss:.4f}, accuracy {meta['accuracy']:.2f}%; K2 launches "
+          f"{launches} (2 per eval window, none under grad); resumed "
+          f"{steps} steps: optimizer count {int(saved[2])} -> "
+          f"{int(after_resume[2])}; one window step {step_ms:.2f} ms (CUDA "
+          f"events, median of 10); peak CUDA memory {peak_gb:.2f} GB",
+          flush=True)
+    total = sum(per_kernel.values())
+    if total:
+        top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
+        print(f"profile of one polish window step at batch {TRAIN_BATCH} "
+              f"(torch.profiler, mean of 3): device busy {total:.3f} ms of "
+              f"{step_ms:.2f} ms ({100 * (1 - total / step_ms):.0f}% idle); "
+              f"top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms"
+                                           for k, ms in top), flush=True)
+    else:
+        print("profile: torch.profiler recorded no device time (device "
+              "breakdown not measured)", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1626,7 +1971,7 @@ def main() -> int:
     phase_train_step(dev)
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_",
                                 dir=os.path.join(ROOT, "build"))
-    for sub in ("variant", "polish", "train"):
+    for sub in ("variant", "polish", "train", "hp", "polish_train"):
         os.makedirs(os.path.join(work_dir, sub))
     try:
         k1["launches"] = phase_end_to_end(
@@ -1635,6 +1980,10 @@ def main() -> int:
             dev, os.path.join(work_dir, "polish"), env["card"])
         k1["launches_trainer_evals"], k3["launches"], k4["launches"] = \
             phase_trainer(dev, os.path.join(work_dir, "train"), env["card"])
+        k1["launches_hp"] = phase_hp_end_to_end(
+            dev, os.path.join(work_dir, "hp"), env["card"])
+        k2["launches_polish_trainer_evals"] = phase_polish_trainer(
+            dev, os.path.join(work_dir, "polish_train"), env["card"])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

@@ -5,7 +5,7 @@ Subcommands (reference pepper_variant/pepper_variant.py:37-55):
   call_variant, make_images, run_inference, find_candidates, merge_variants.
 Platform presets fill unset thresholds exactly as SetParameters.py does.
 The model runs on `--device` (cuda by default; cuda with no CUDA device
-raises). merge_variants and --use_hp_info are not ported yet and raise.
+raises).
 """
 import argparse
 import sys
@@ -180,18 +180,12 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     return set_parameters(config)
 
 
-_NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP M8 / HP)"
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.sub_command == "merge_variants":
-        raise NotImplementedError(f"merge_variants is {_NOT_PORTED}")
-    if getattr(args, "use_hp_info", False):
-        raise NotImplementedError(f"--use_hp_info is {_NOT_PORTED}")
     config = config_from_args(args)
-    from pepper_tpu_torch.parallel import multihost
-    multihost.initialize_from_config(config)
+    if args.sub_command != "merge_variants":
+        from pepper_tpu_torch.parallel import multihost
+        multihost.initialize_from_config(config)
 
     if args.sub_command == "call_variant":
         config.require("min_mapq", "min_snp_baseq", "snp_frequency",
@@ -215,6 +209,11 @@ def main(argv=None) -> int:
         from pepper_tpu_torch.pipelines.find_candidates import process_candidates
         process_candidates(config, args.input_dir, args.output_dir,
                            shard_batches_by_host=True)
+    elif args.sub_command == "merge_variants":
+        from pepper_tpu_torch.pipelines.merge_variants import merge_variants
+        merge_variants(args.vcf_pepper, args.vcf_deepvariant,
+                       args.vcf_deepvariant_snps, args.vcf_deepvariant_indels,
+                       args.output_dir, args.sample_name)
     return 0
 
 

@@ -63,10 +63,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.sub_command == "make_train_images":
         import os
-        if args.use_hp_info:
-            raise NotImplementedError(
-                "--use_hp_info is not yet ported to the PyTorch package "
-                "(ROADMAP M8 / HP)")
         config = config_from_args(args)
         config.train_mode = True
         config.truth_vcf = args.truth_vcf

@@ -7,16 +7,17 @@ models/polish_model.py:
   -> Linear(256 -> 5) per position; the hidden is returned for the window
   carry (polish/consensus.py).
 
-There is no `fused_rnn` switch: both biGRU layers go through
-ops/fused_gru.py, whose CUDA tensors launch kernel K2 and whose CPU tensors
-take its plain version.
+`polish_forward(..., fused_rnn=)` picks the biGRU layer as the JAX
+package's does: True goes through ops/fused_gru.py (kernel K2 on CUDA
+tensors, its plain version on the CPU; inference only), False through
+models/rnn.py::gru, the differentiable step loop the trainer takes.
 """
 from typing import Dict, Tuple
 
 import torch
 
-from pepper_tpu_torch.models.rnn import (init_linear_params, init_rnn_params,
-                                         linear)
+from pepper_tpu_torch.models.rnn import (gru, init_linear_params,
+                                         init_rnn_params, linear)
 from pepper_tpu_torch.ops.fused_gru import fused_bigru
 from pepper_tpu_torch.options import PolishImageOptions, PolishTrainOptions
 
@@ -41,14 +42,22 @@ def init_hidden(batch_size: int, hidden: int = PolishTrainOptions.HIDDEN_SIZE,
     return torch.zeros((batch_size, 2, hidden), dtype=dtype, device=device)
 
 
-def polish_forward(params: Params, x: torch.Tensor, hidden: torch.Tensor
+def polish_forward(params: Params, x: torch.Tensor, hidden: torch.Tensor,
+                   fused_rnn: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B,T,F]; hidden: [B,2,H]. Returns (logits [B,T,C], hidden [B,2,H]).
 
     The encoder consumes the incoming hidden; its final hidden seeds the
     decoder, and the decoder's final hidden is returned — the reference's
-    forward (simple_model.py:27-42)."""
-    enc_out, enc_hidden = fused_bigru(params["gru_encoder"], x, hidden)
-    dec_out, dec_hidden = fused_bigru(params["gru_decoder"], enc_out,
-                                      enc_hidden)
+    forward (simple_model.py:27-42).
+
+    fused_rnn=True runs both biGRU layers through `fused_bigru` (kernel K2
+    on a CUDA tensor; it raises there under grad), False through `rnn.gru`,
+    which autograd differentiates. The default is False, as in the JAX
+    package (pepper_tpu/models/polish_model.py:45); the serving and eval
+    paths (polish/consensus.py, train/polish_train.py::polish_accuracy)
+    pass True."""
+    layer = fused_bigru if fused_rnn else gru
+    enc_out, enc_hidden = layer(params["gru_encoder"], x, hidden)
+    dec_out, dec_hidden = layer(params["gru_decoder"], enc_out, enc_hidden)
     return linear(params["dense1"], dec_out), dec_hidden

@@ -58,8 +58,9 @@ def _dropout(x: torch.Tensor, rate: float,
 def variant_forward(params: Params, x: torch.Tensor, train_mode: bool = False,
                     dropout_gen: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """x: [B, 33, F] in the params' dtype. Returns softmax probs [B, 3], or
-    the logits when train_mode (the reference's train-time contract).
+    """x: [B, T, F] in the params' dtype (33x26, or 21x48 in the HP pass).
+    Returns softmax probs [B, 3], or the logits when train_mode (the
+    reference's train-time contract).
 
     dropout_gen: a generator on x's device; dropout 0.2 is applied in
     train mode after the LSTM stack and after linear_1..4, drawing from it

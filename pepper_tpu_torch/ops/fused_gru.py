@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from pepper_tpu_torch.ops.fused_lstm import aligned
+from pepper_tpu_torch.ops.fused_lstm import aligned, records_grad
 from pepper_tpu_torch.ops.pack_cache import cached_pack
 
 # kernel launches made by this process (reset by callers that count a run),
@@ -250,7 +250,15 @@ def fused_bigru(params: Dict[str, torch.Tensor], x: torch.Tensor,
     """Bidirectional GRU, drop-in for rnn.gru.
 
     x: [B,T,F]; h0: [B,2,H] (direction-major). Returns (out [B,T,2H] in
-    x's dtype, h_final [B,2,H] in h0's dtype)."""
+    x's dtype, h_final [B,2,H] in h0's dtype). K2 has no backward: on a
+    CUDA tensor under grad (`records_grad`) this raises; rnn.gru
+    (`polish_forward(..., fused_rnn=False)`) is the differentiable layer."""
+    if x.is_cuda and records_grad(params, x, h0):
+        raise RuntimeError(
+            "fused_bigru: kernel K2 has no backward and its output would "
+            "carry no gradient; use rnn.gru (polish_forward(..., "
+            "fused_rnn=False)) for a differentiable biGRU, or run under "
+            "torch.inference_mode()")
     xp_f, xp_b = input_projections(params, x)
     if x.is_cuda:
         B, T, _ = x.shape

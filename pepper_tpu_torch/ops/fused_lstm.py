@@ -303,6 +303,16 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def records_grad(params: Dict[str, torch.Tensor], *tensors) -> bool:
+    """Whether autograd would record a graph through a call on these
+    tensors: grad mode is on and one of them or of the layer's parameters
+    requires grad. The inference kernels (K1, K2) write their output
+    through ctypes, which autograd cannot see, so their wrappers raise
+    when this holds instead of returning a result with no gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (*tensors, *params.values()))
+
+
 def _check_packed_inputs(what: str, pack: PackedBiLSTM, xp_f, xp_b,
                          residuals: bool) -> Tuple[int, int, int]:
     """The checks K1 and K3 share: type, device and shapes of xp [B,T,4H]
@@ -371,8 +381,15 @@ def fused_bilstm(params: Dict[str, torch.Tensor],
                  x: torch.Tensor) -> torch.Tensor:
     """Bidirectional LSTM with zero initial state, drop-in for rnn.lstm.
 
-    x: [B, T, F] -> [B, T, 2H] (forward || backward), in x's dtype."""
+    x: [B, T, F] -> [B, T, 2H] (forward || backward), in x's dtype. K1 has
+    no backward: on a CUDA tensor under grad (`records_grad`) this raises;
+    `fused_bilstm_train` is the differentiable layer."""
     if x.is_cuda:
+        if records_grad(params, x):
+            raise RuntimeError(
+                "fused_bilstm: kernel K1 has no backward and its output "
+                "would carry no gradient; use fused_bilstm_train for a "
+                "differentiable biLSTM, or run under torch.inference_mode()")
         B, T, _ = x.shape
         H = params["weight_hh_l0"].shape[1]
         pack = packed_layer(params, select_kernel(B, T, H, x.dtype))

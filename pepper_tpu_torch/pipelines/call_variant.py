@@ -55,9 +55,6 @@ def call_variant(config: PipelineConfig) -> dict:
     from pepper_tpu_torch.parallel import multihost
     from pepper_tpu_torch.runtime.streaming import resolve_device
 
-    if config.use_hp_info:
-        raise NotImplementedError("use_hp_info is not yet ported to the "
-                                  "PyTorch package (ROADMAP M8 / HP)")
     start_time = time.time()
     multihost.initialize_from_config(config)
     validate_inputs(config)

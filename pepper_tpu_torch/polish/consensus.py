@@ -45,7 +45,7 @@ def window_votes(cparams, x: torch.Tensor) -> torch.Tensor:
     for start in range(0, seq_len - window + 1,
                        PolishTrainOptions.WINDOW_JUMP):
         logits, hidden = polish_forward(cparams, x[:, start:start + window],
-                                        hidden)
+                                        hidden, fused_rnn=True)
         votes[:, start:start + window] += torch.softmax(logits.float(), dim=2)
     return votes
 

@@ -101,7 +101,9 @@ class DeviceRunner:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def forward(self, images8: torch.Tensor) -> torch.Tensor:
-        """int8 images [B, 33, F] on the runner's device -> f32 probs."""
+        """int8 images [B, T, F] on the runner's device (33x26, or 21x48 in
+        the HP pass: the widths come from the images and the checkpoint)
+        -> f32 probs."""
         from pepper_tpu_torch.models.variant_model import variant_forward
         with torch.inference_mode():
             return variant_forward(self._params,

@@ -577,3 +577,94 @@ def test_bilstm_train_kernels_reject_what_they_do_not_take(cuda_device):
             torch.zeros(2, 2, 3, 64, device=cuda_device),
             torch.zeros(2, 2, 3, 16, device=cuda_device), out)
     assert (fl.train_fwd_launches, fl.train_bwd_launches) == before
+
+
+@pytest.mark.cuda
+def test_inference_kernels_raise_under_grad(cuda_device):
+    """K1 and K2 write their outputs through ctypes, with no autograd node:
+    under grad, with a parameter or the input requiring it, their wrappers
+    raise instead of returning an output with no gradient; under
+    inference_mode they launch."""
+    gru = {n: v.requires_grad_() for n, v in
+           _gru_layer(cuda_device, torch.float32, 10, 32, 1).items()}
+    x = torch.randn(3, 5, 10, device=cuda_device)
+    h0 = torch.zeros(3, 2, 32, device=cuda_device)
+    lstm = {n: v.requires_grad_() for n, v in
+            _lstm_layer(cuda_device, torch.float32, 10, 32, 2).items()}
+    before = (fg.launches, fl.launches)
+    with pytest.raises(RuntimeError, match="fused_rnn=False"):
+        fg.fused_bigru(gru, x, h0)
+    with pytest.raises(RuntimeError, match="fused_bilstm_train"):
+        fl.fused_bilstm(lstm, x)
+    plain = {n: v.detach() for n, v in gru.items()}
+    with pytest.raises(RuntimeError, match="no backward"):
+        fg.fused_bigru(plain, x, h0.clone().requires_grad_())
+    assert (fg.launches, fl.launches) == before
+    with torch.inference_mode():
+        fg.fused_bigru(gru, x, h0)
+        fl.fused_bilstm(lstm, x)
+    assert (fg.launches, fl.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_polish_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One window step of the polish trainer (the differentiable step loop,
+    Adam) at full width on the card against the same step on the CPU, from
+    the same weights: the loss at rtol 1e-4, the updated parameters within
+    2 lr (Adam's first update is lr * g / (|g| + eps))."""
+    from pepper_tpu_torch.models.polish_model import init_polish_params
+    from pepper_tpu_torch.train import polish_train as pt
+    from pepper_tpu_torch.train import variant_train as vt
+
+    tree = init_polish_params(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand(8, 100, 10, generator=g) * 60).floor()
+    y = torch.randint(0, 5, (8, 100), generator=g)
+    h0 = torch.randn(8, 2, 128, generator=g) * 0.5
+    lr = 1e-3
+    runs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        params = vt.trainable(tree, device)
+        step = pt.make_polish_train_step(params, vt.make_optimizer(
+            params, lr, 1e-6))
+        hidden, loss = step(x.to(device), y.to(device), h0.to(device))
+        runs[device.type] = (float(loss), hidden.cpu(), {
+            k: p.detach().cpu() for k, p in vt.sorted_leaves(params)})
+    (loss, hidden, got), (want_loss, want_hidden, want) = (
+        runs["cuda"], runs["cpu"])
+    assert loss == pytest.approx(want_loss, rel=1e-4)
+    assert (hidden - want_hidden).abs().max().item() <= 1e-4
+    for k in want:
+        assert (got[k] - want[k]).abs().max().item() <= 2 * lr, k
+
+
+@pytest.mark.cuda
+def test_hp_runner_batch_launches_k1_at_21x48(cuda_device, monkeypatch):
+    """A streamed runner batch of 21x48 HP images through a 48-feature
+    classifier (first W_ih [1024, 48]): K1 launches once per biLSTM layer on
+    the card, and the probabilities agree with the CPU runner's f32 ones."""
+    import numpy as np
+
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    params = init_variant_params(torch.Generator().manual_seed(5),
+                                 image_features=48, window=21)
+    tree = {grp: {k: v.numpy() for k, v in leaves.items()}
+            for grp, leaves in params.items()}
+    assert tree["encoder"]["weight_ih_l0"].shape == (1024, 48)
+    rng = np.random.default_rng(6)
+    images = rng.integers(-125, 126, (300, 21, 48))
+    images[rng.random(images.shape) < 0.7] = 0
+    images = images.astype(np.int8)
+    probs = {}
+    for precision in ("bf16", "f32"):
+        monkeypatch.setenv("PEPPER_TPU_PRECISION", precision)
+        runner = DeviceRunner(tree, 1000, device="cuda")
+        before = fl.launches
+        probs[precision] = np.asarray(runner.submit(images))[:300]
+        assert fl.launches == before + 2
+    want = np.asarray(DeviceRunner(tree, 1000, device="cpu")
+                      .submit(images))[:300]
+    assert np.abs(probs["f32"] - want).max() <= 1e-3
+    assert np.abs(probs["bf16"] - want).max() <= 2e-2
