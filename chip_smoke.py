@@ -68,7 +68,27 @@ at once, into the git-ignored build/ directory, then:
      resume restores the optimizer state, and that a CUDA fused_bigru under
      grad raises; prints ms per window step, its busy and idle share and
      the peak memory;
- 13. prints one JSON line describing every ported kernel.
+ 13. runs the classifier's runner over a 2-entry mesh on the one card (two
+     replicas, each on its own stream) at 16384 rows of 33x26 and of the
+     HP 21x48 geometry, and the polish vote function over the same mesh,
+     against one replica in bf16: bitwise equal, and K1 and K2 on two
+     halves of a batch bitwise equal to the whole; at 4096 rows, where
+     the linear layers' cuBLAS kernels differ between the shard's row
+     count and the whole's, within bf16 rounding; times both;
+ 14. runs the streamed call_variant of phase 6's dataset as two hosts in
+     filesystem mode (two processes, --num_hosts 2 --host_id 0/1, one
+     shared output directory) and holds host 0's VCFs byte for byte
+     against phase 6's 1-host run; prints each host's wall time and the
+     candidate gather's wait;
+ 15. trains the full-width classifier for 4 steps at global batch 128 with
+     dropout on in two ranks of a gloo group on the one card (NCCL refuses
+     two ranks on one card), holds the parameters and losses against one
+     process that runs the same two blocks as in-process replicas and the
+     ranks against each other (bit-identical), checks that K3 and K4
+     launched in each rank, and prints the ms per step and the
+     all-reduce's share of it;
+ 16. runs parallel/dryrun.py::dryrun_multichip(2) on the card;
+ 17. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -78,6 +98,7 @@ import glob
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -98,6 +119,7 @@ H = 256            # classifier biLSTM hidden size
 PH = 128           # polish biGRU hidden size
 WINDOW = 100       # polish window (19 per 1000-long sequence)
 POLISH_BATCH = 128
+SHARD_ROWS = 16384   # the streamed runner's batch on the card
 # builds the tensor-core K1 and K2 with tanhf/expf in place of tanh.approx
 EXACT_ACTIVATIONS = ("PEPPER_EXACT_ACTIVATIONS",)
 
@@ -867,7 +889,8 @@ def phase_end_to_end(dev, work_dir, name):
           flush=True)
     check(len(rec_cpu) > 0, "the CPU run called no variants")
     check(diff_f32 == 0, "cuda f32 and cpu f32 call different records")
-    return launches
+    return launches, {"bam": bam, "fasta": fasta, "model": model,
+                      "out": out_cuda, "wall": wall_cuda}
 
 
 # --------------------------------------------------------------- phase 7
@@ -1686,7 +1709,7 @@ def phase_hp_end_to_end(dev, work_dir, name):
         check(launches > 0, "the streamed HP run on the card never launched "
               "K1")
         runner = streaming.get_device_runner(model, 16384, "cuda")
-        w_ih = runner._params["encoder"]["weight_ih_l0"]
+        w_ih = runner._replicas[0]["encoder"]["weight_ih_l0"]
         check(tuple(w_ih.shape) == (4 * H, 48), f"the HP runner's first "
               f"W_ih is {tuple(w_ih.shape)}, expected ({4 * H}, 48)")
         x8 = torch.from_numpy(images(np.random.default_rng(115),
@@ -1953,6 +1976,323 @@ def phase_polish_trainer(dev, work_dir, name):
     return launches
 
 
+# -------------------------------------------------------------- phase 13
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of fn() (which ends in a wait on the device)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def _k1_rows_independent(params, x8) -> bool:
+    """K1 on a batch's input projections against K1 on its two halves:
+    the kernel's rows are independent, so the halves must give the
+    whole's bits."""
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    B, T, _ = x8.shape
+    dtype = params["encoder"]["weight_hh_l0"].dtype
+    pack = fl.packed_layer(params["encoder"], fl.select_kernel(
+        B, T, H, dtype))
+    with torch.inference_mode():
+        xp_f, xp_b = fl.packed_projections(pack, x8.to(dtype))
+        whole = fl.bilstm_recurrence_packed(pack, xp_f, xp_b)
+        half = B // 2
+        halves = torch.cat([
+            fl.bilstm_recurrence_packed(pack, xp_f[:half], xp_b[:half]),
+            fl.bilstm_recurrence_packed(pack, xp_f[half:], xp_b[half:])])
+    return bool(torch.equal(whole, halves))
+
+
+def _k2_rows_independent(params, x8, h0) -> bool:
+    """K2 likewise, on the encoder layer of one window with a nonzero h0."""
+    from pepper_tpu_torch.ops import fused_gru as fg
+
+    p = params["gru_encoder"]
+    B = x8.shape[0]
+    with torch.inference_mode():
+        x = x8[:, :WINDOW].to(h0.dtype)
+        whole = fg.fused_bigru(p, x, h0)
+        half = B // 2
+        parts = [fg.fused_bigru(p, x[:half], h0[:half]),
+                 fg.fused_bigru(p, x[half:], h0[half:])]
+    return all(bool(torch.equal(w, torch.cat([a, b])))
+               for w, a, b in zip(whole, *parts))
+
+
+def phase_sharded_inference(dev):
+    """The runner and the vote function over a 2-entry mesh on the one
+    card (two replicas, each on its own stream) against one replica in
+    bf16. K1 and K2 take each row on its own, so a shard's kernel output
+    is the whole's, bitwise. The cuBLAS GEMMs around them pick their
+    kernel by row count: at the runner's 16384 rows (8192 a shard) and
+    the vote's 256 sequences the results are bitwise the same; at 4096
+    rows they differ at bf16 rounding (within 1e-2, a class changing only
+    at a top-two margin that small)."""
+    from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.ops import fused_gru as fg
+    from pepper_tpu_torch.ops import fused_lstm as fl
+    from pepper_tpu_torch.parallel.mesh import data_mesh
+    from pepper_tpu_torch.polish.consensus import (make_window_vote_fn,
+                                                   window_votes)
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    mesh = data_mesh([dev, dev])
+    check(len(mesh) == 2 and mesh[0] == mesh[1],
+          f"a 2-entry mesh on one card: {mesh}")
+    rng = np.random.default_rng(131)
+    k1_launches = 0
+    os.environ["PEPPER_TPU_PRECISION"] = "bf16"
+    try:
+        # the runner's batch, bitwise; then 4096 rows, where the linear
+        # layers' cuBLAS kernels differ between 2048 and 4096 rows
+        for seed, window, features, rows in (
+                (132, 33, 26, SHARD_ROWS), (133, 21, 48, SHARD_ROWS),
+                (132, 33, 26, 4096)):
+            tree = numpy_variant_tree(seed, features, window)
+            x8 = images(rng, rows, window, features)
+            sharded = DeviceRunner(tree, rows, mesh)
+            single = DeviceRunner(tree, rows, mesh[:1])
+            check(sharded.batch == rows and sharded.dtype == torch.bfloat16,
+                  "the sharded runner's batch or dtype")
+            fl.launches = 0                   # count the main path only
+            got = np.asarray(sharded.submit(x8))
+            launches = fl.launches
+            check(launches == 4, f"two replicas launched K1 {launches} "
+                  f"times for one batch (expected 2 each)")
+            if rows == SHARD_ROWS:
+                k1_launches += launches
+            want = np.asarray(single.submit(x8))
+            check(got.shape == (rows, 3) and np.isfinite(got).all(),
+                  "sharded probabilities malformed")
+            rows_k1 = _k1_rows_independent(
+                single._replicas[0], torch.from_numpy(x8).to(dev))
+            err = float(np.abs(got - want).max())
+            top2 = np.sort(want, axis=1)[:, -2:]
+            flipped = got.argmax(1) != want.argmax(1)
+            n_diff = int((got != want).any(axis=1).sum())
+            two_ms = _host_ms(lambda: np.asarray(sharded.submit(x8)))
+            one_ms = _host_ms(lambda: np.asarray(single.submit(x8)))
+            print(f"sharded inference {window}x{features}: 2 replicas on "
+                  f"{mesh[0]} (own streams) vs 1, {rows} rows bf16: K1 "
+                  f"launches {launches} (2 per replica); K1 on two halves "
+                  f"bitwise the whole: {rows_k1}; rows differing from one "
+                  f"replica {n_diff} (must be 0 at {SHARD_ROWS} rows), max "
+                  f"abs err {err:.3e} (tolerance 1e-2), classes changed "
+                  f"{int(flipped.sum())}; {two_ms:.3f} ms per batch with 2 "
+                  f"replicas, {one_ms:.3f} ms with 1 (host clock around "
+                  f"submit and the D2H wait, median of 10)", flush=True)
+            check(rows_k1, "K1 on two halves differs from K1 on the whole")
+            check(n_diff == 0 or rows != SHARD_ROWS, "the 2-replica "
+                  "runner's probabilities differ from one replica's")
+            check(err <= 1e-2 and bool(
+                (np.diff(top2[flipped], axis=1) <= 2 * err).all()),
+                "the 2-replica runner's probabilities differ from one "
+                "replica's beyond bf16 rounding")
+            del sharded, single
+    finally:
+        os.environ.pop("PEPPER_TPU_PRECISION", None)
+
+    tree = numpy_polish_tree(134)
+    x8 = torch.from_numpy(polish_images(rng, 2 * POLISH_BATCH)).to(dev)
+    vote_mesh = make_window_vote_fn(tree, dev, torch.bfloat16, mesh=mesh)
+    vote_one = make_window_vote_fn(tree, dev, torch.bfloat16)
+    fg.launches = 0                           # count the main path only
+    labels, phred = vote_mesh(x8)
+    torch.cuda.synchronize()
+    k2_launches = fg.launches
+    check(k2_launches == 2 * 38, f"the sharded vote launched K2 "
+          f"{k2_launches} times (expected 38 per 128-row shard)")
+    want_labels, want_phred = vote_one(x8)
+    params = params_from_jax(tree, dev, torch.bfloat16)
+    h0 = torch.from_numpy(0.5 * rng.standard_normal(
+        (2 * POLISH_BATCH, 2, PH)).astype(np.float32)).to(dev, torch.bfloat16)
+    rows_k2 = _k2_rows_independent(params, x8, h0)
+    with torch.inference_mode():
+        margin = vote_margins(window_votes(params, x8.to(torch.bfloat16)))
+    changed = labels != want_labels
+    worst_margin = float(margin[changed].max()) if bool(changed.any()) \
+        else 0.0
+    two_ms = median_ms(lambda: vote_mesh(x8))
+    one_ms = median_ms(lambda: vote_one(x8))
+    print(f"sharded vote: {2 * POLISH_BATCH} sequences bf16 over 2 replicas "
+          f"vs 1: K2 launches {k2_launches} (38 per shard); K2 on two "
+          f"halves bitwise the whole: {rows_k2}; base labels differing "
+          f"{int(changed.sum())} of {changed.numel()} (at unsharded top-two "
+          f"vote margins up to {worst_margin:.2e}), phred differing at "
+          f"{int((phred != want_phred).sum())} (both must be 0); {two_ms:.3f} "
+          f"ms per batch with 2 replicas, {one_ms:.3f} ms with 1 (CUDA "
+          f"events on the caller's stream, median of 10)", flush=True)
+    check(labels.shape == (2 * POLISH_BATCH, 1000)
+          and bool(torch.isfinite(phred).all()), "sharded votes malformed")
+    check(rows_k2, "K2 on two halves differs from K2 on the whole")
+    check(not bool(changed.any()) and torch.equal(phred, want_phred),
+          "the sharded vote's labels or phred differ from the unsharded "
+          "one's")
+    return k1_launches, k2_launches
+
+
+# -------------------------------------------------------------- phase 14
+def _env():
+    return dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
+
+
+def _run_all(cmds, log_dir, timeout=600):
+    """Run the commands at once from the repo's root, their output in
+    files under log_dir; kill any still running at the timeout or on an
+    error. Returns each one's (wall s, stderr text); fails on a non-zero
+    exit. This process's cached CUDA blocks are released first: the
+    commands share the card with it."""
+    torch.cuda.empty_cache()
+    procs, files = [], []
+    try:
+        for i, cmd in enumerate(cmds):
+            out = open(os.path.join(log_dir, f"proc{i}.out"), "w+")
+            err = open(os.path.join(log_dir, f"proc{i}.err"), "w+")
+            files += [out, err]
+            procs.append((time.time(), subprocess.Popen(
+                cmd, cwd=ROOT, env=_env(), stdout=out, stderr=err)))
+        walls = [None] * len(procs)
+        deadline = time.time() + timeout
+        while None in walls and time.time() < deadline:
+            for i, (t0, p) in enumerate(procs):
+                if walls[i] is None and p.poll() is not None:
+                    walls[i] = time.time() - t0
+            time.sleep(0.05)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    errs = []
+    for i, (_, p) in enumerate(procs):
+        with open(os.path.join(log_dir, f"proc{i}.err")) as fh:
+            errs.append(fh.read())
+        check(walls[i] is not None, f"{cmds[i][:4]} ran past {timeout}s")
+        check(p.returncode == 0, f"a subprocess failed ({cmds[i][:4]}): "
+              + errs[i][-3000:])
+    for f in files:
+        f.close()
+    return list(zip(walls, errs))
+
+
+def phase_two_hosts(dev, work_dir, variant_run):
+    """Two hosts in filesystem mode on the one card: the streamed
+    call_variant of phase 6's dataset striped over 2 processes sharing one
+    output directory; host 0's VCFs against phase 6's 1-host run."""
+    out = os.path.join(work_dir, "two_hosts") + "/"
+    logs = os.path.join(work_dir, "two_hosts_logs")
+    os.makedirs(logs)
+    cmds = [[sys.executable, "-m", "pepper_tpu_torch.cli.pepper_variant_main",
+             "call_variant", "-b", variant_run["bam"], "-f",
+             variant_run["fasta"], "-m", variant_run["model"], "-o", out,
+             "--ont_r9_guppy5_sup", "-t", "4", "--region_size", "25000",
+             "--device", dev.type, "--num_hosts", "2", "--host_id",
+             str(host)] for host in (0, 1)]
+    (wall0, err0), (wall1, _) = _run_all(cmds, logs)
+    waits = [ln.rsplit(" ", 1)[-1] for ln in err0.splitlines()
+             if "GATHER WAIT" in ln]
+    single = {os.path.basename(p): open(p, "rb").read() for p in
+              sorted(glob.glob(os.path.join(variant_run["out"], "*.vcf.gz")))}
+    double = {os.path.basename(p): open(p, "rb").read() for p in
+              sorted(glob.glob(os.path.join(out, "*.vcf.gz")))}
+    same = [name for name in single if double.get(name) == single[name]]
+    print(f"two hosts (filesystem mode) on one card, streamed call_variant "
+          f"of the phase-6 dataset: host 0 wall {wall0:.2f}s, host 1 "
+          f"wall {wall1:.2f}s (process start and kernel load included; "
+          f"the 1-host run in process: {variant_run['wall']:.2f}s); host 0's "
+          f"gather wait {waits[0] if waits else 'not logged'}; VCFs "
+          f"byte-identical to the 1-host run: {len(same)} of {len(single)}",
+          flush=True)
+    check(len(single) == 5 and sorted(double) == sorted(single)
+          and len(same) == 5, "the 2-host VCFs differ from the 1-host run")
+    check(not glob.glob(os.path.join(out, ".pepper_candidates_host_*")),
+          "the gather left a candidate shard behind")
+
+
+# -------------------------------------------------------------- phase 15
+def phase_two_ranks(dev, work_dir):
+    """Two ranks of variant training in one gloo group on the one card
+    (NCCL refuses two ranks on one card), 4 full-width steps at global
+    batch 128 with dropout on, against one process that runs the same two
+    blocks as in-process replicas."""
+    data = os.path.join(work_dir, "dp")
+    os.makedirs(data)
+    rng = np.random.default_rng(151)
+    np.save(os.path.join(data, "images.npy"), images(rng, 128))
+    np.save(os.path.join(data, "labels.npy"), rng.integers(0, 3, 128))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+
+    def rank_cmd(tag, *extra):
+        return [sys.executable, "-m", "pepper_tpu_torch.parallel.dp_rehearsal",
+                "variant", "--data", data, "--steps", "4", "--hidden", str(H),
+                "--device", device, "--dropout", "--out",
+                os.path.join(data, tag + ".npz"), *extra]
+
+    (wall, _), _ = _run_all(
+        [rank_cmd(f"rank{r}", "--rank", str(r), "--world", "2", "--backend",
+                "gloo", "--coordinator", f"127.0.0.1:{port}")
+         for r in range(2)], data)
+    _run_all([rank_cmd("single", "--blocks", "2")], data)
+    ranks = [np.load(os.path.join(data, f"rank{r}.npz")) for r in range(2)]
+    single = np.load(os.path.join(data, "single.npz"))
+    keys = [k for k in single.files if not k.startswith("__")]
+    worst, identical = 0.0, True
+    for k in keys:
+        tol = 1e-4 + 5e-3 * np.abs(single[k])
+        worst = max(worst, float((np.abs(ranks[0][k] - single[k])
+                                  / tol).max()))
+        identical &= bool(np.array_equal(ranks[0][k], ranks[1][k]))
+    losses = ranks[0]["__losses__"]
+    loss_err = float(np.max(np.abs(losses - single["__losses__"])
+                            / np.abs(single["__losses__"])))
+    step_ms = [float(np.median(r["__step_ms__"][1:])) for r in ranks]
+    share = [float(np.median(r["__allreduce_ms__"][1:]
+                             / r["__step_ms__"][1:])) for r in ranks]
+    launches = [[int(v) for v in r["__launches__"]] for r in ranks]
+    print(f"two ranks (gloo, both on {device}) of variant training, 4 "
+          f"full-width steps at global batch 128, dropout on: losses "
+          f"{[round(float(v), 4) for v in losses]} vs one process "
+          f"{[round(float(v), 4) for v in single['__losses__']]} (max rel "
+          f"{loss_err:.2e}, tolerance 1e-4); parameters at worst "
+          f"{worst:.3f} of the tolerance rtol 5e-3 + atol 1e-4; ranks "
+          f"bit-identical: {identical}; K3/K4 launches per rank {launches} "
+          f"(2 each per step); ms per step (median of steps 2-4, host clock "
+          f"with the card synchronized, upload included) {step_ms}, the "
+          f"all-reduce's share {[round(v, 3) for v in share]}; wall "
+          f"{wall:.2f}s for rank 0 (process start and kernel load included)",
+          flush=True)
+    check(len(keys) == 28 and worst <= 1.0 and loss_err <= 1e-4,
+          "two ranks disagree with one process")
+    check(identical and np.array_equal(ranks[0]["__losses__"],
+                                       ranks[1]["__losses__"]),
+          "the two ranks hold different parameters")
+    check(all(lc == [8, 8] for lc in launches),
+          f"each rank must launch K3 and K4 twice per step: {launches}")
+    return launches
+
+
+# -------------------------------------------------------------- phase 16
+def phase_dryrun(dev):
+    from pepper_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.time()
+    out = dryrun_multichip(2, device=str(dev))
+    print(f"dryrun_multichip(2) on the card: {json.dumps(out)} "
+          f"[{time.time() - t0:.1f}s]", flush=True)
+    check(out["shapes"] == {"base": [4, 3], "hp": [4, 3],
+                            "polish": [4, 1000]}
+          and np.isfinite(out["loss"]), "the dry run's outputs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1974,7 +2314,7 @@ def main() -> int:
     for sub in ("variant", "polish", "train", "hp", "polish_train"):
         os.makedirs(os.path.join(work_dir, sub))
     try:
-        k1["launches"] = phase_end_to_end(
+        k1["launches"], variant_run = phase_end_to_end(
             dev, os.path.join(work_dir, "variant"), env["card"])
         k2["launches"] = phase_polish_end_to_end(
             dev, os.path.join(work_dir, "polish"), env["card"])
@@ -1984,6 +2324,13 @@ def main() -> int:
             dev, os.path.join(work_dir, "hp"), env["card"])
         k2["launches_polish_trainer_evals"] = phase_polish_trainer(
             dev, os.path.join(work_dir, "polish_train"), env["card"])
+        k1["launches_mesh"], k2["launches_mesh"] = \
+            phase_sharded_inference(dev)
+        phase_two_hosts(dev, work_dir, variant_run)
+        ddp = phase_two_ranks(dev, work_dir)
+        k3["launches_ddp"] = [r[0] for r in ddp]
+        k4["launches_ddp"] = [r[1] for r in ddp]
+        phase_dryrun(dev)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

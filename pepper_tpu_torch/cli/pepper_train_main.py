@@ -1,7 +1,14 @@
 """`pepper_train` CLI of the PyTorch port — polishing-model training
 (reference pepper/pepper_train.py:286-345: make_train_images, train_model,
 test_model, run_hyperband). The model runs on `--device` (cuda by default;
-cuda with no CUDA device raises)."""
+cuda with no CUDA device raises).
+
+train_model joins a torch.distributed group first when `torchrun` started
+it (parallel/multihost.py), so
+
+    torchrun --nproc_per_node N -m pepper_tpu_torch.cli.pepper_train_main train_model ...
+
+trains data parallel, one rank per card (`-bs` is the global batch)."""
 import argparse
 import sys
 
@@ -73,7 +80,9 @@ def main(argv=None) -> int:
             downsample_rate=args.downsample_rate,
             realignment_flag=not args.no_realignment)
     elif args.sub_command == "train_model":
+        from pepper_tpu_torch.parallel import multihost
         from pepper_tpu_torch.train.polish_train import train_polish
+        multihost.initialize(backend=multihost.default_backend(args.device))
         best = train_polish(args.train_image_dir, args.test_image_dir,
                             args.model_out_dir, batch_size=args.batch_size,
                             epoch_limit=args.epoch_size,

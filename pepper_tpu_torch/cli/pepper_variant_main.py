@@ -103,8 +103,11 @@ def _add_multihost(p):
     p.add_argument("--host_id", type=int, default=None,
                    help="This host's index in [0, num_hosts).")
     p.add_argument("--coordinator_address", default=None,
-                   help="Multi-host coordinator (host:port); multi-host runs "
-                        "are not ported yet (ROADMAP M7) and raise.")
+                   help="torch.distributed coordinator (host:port of the "
+                        "rank-0 host); with --num_hosts and --host_id as "
+                        "the world size and rank. Without it, --num_hosts "
+                        "selects filesystem mode (no rendezvous; the hosts "
+                        "share the output directory).")
 
 
 def _add_platform_presets(p):

@@ -1,7 +1,14 @@
 """`pepper_variant_train` CLI of the PyTorch port — training-side
 subcommands (reference pepper_variant/pepper_variant_train.py:308-347:
 make_train_images, train_model, test_model, backend_stat). The model runs
-on `--device` (cuda by default; cuda with no CUDA device raises)."""
+on `--device` (cuda by default; cuda with no CUDA device raises).
+
+train_model joins a torch.distributed group first when `torchrun` started
+it (parallel/multihost.py), so
+
+    torchrun --nproc_per_node N -m pepper_tpu_torch.cli.pepper_variant_train_main train_model ...
+
+trains data parallel, one rank per card (`-bs` is the global batch)."""
 import argparse
 import sys
 
@@ -72,7 +79,9 @@ def main(argv=None) -> int:
         from pepper_tpu_torch.pipelines.make_images import generate_images
         generate_images(config)
     elif args.sub_command == "train_model":
+        from pepper_tpu_torch.parallel import multihost
         from pepper_tpu_torch.train.variant_train import train
+        multihost.initialize(backend=multihost.default_backend(args.device))
         best = train(args.train_image_dir, args.test_image_dir,
                      args.model_out_dir, batch_size=args.batch_size,
                      epoch_limit=args.epoch_size, step_size=args.step_size,

@@ -17,7 +17,7 @@ mode the layers run `fused_bilstm_train` (kernels K3 and K4 for CUDA
 tensors), dropout is active when a generator is given, and the logits are
 returned.
 """
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,16 +47,25 @@ def init_variant_params(gen: torch.Generator,
     }
 
 
-def _dropout(x: torch.Tensor, rate: float,
-             gen: torch.Generator) -> torch.Tensor:
-    """Inverted dropout: keep with probability 1-rate, rescale the kept."""
+def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator,
+             block: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1-rate, rescale the kept.
+    block (first row, global rows): x holds rows [first, first + len(x))
+    of a global batch; the mask is drawn for the whole global batch and
+    these rows are kept, so every rank of a data-parallel group draws
+    what one process would."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    shape, lo = x.shape, 0
+    if block is not None:
+        lo, shape = block[0], (block[1],) + tuple(x.shape[1:])
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    mask = mask[lo:lo + x.shape[0]]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def variant_forward(params: Params, x: torch.Tensor, train_mode: bool = False,
-                    dropout_gen: Optional[torch.Generator] = None
+                    dropout_gen: Optional[torch.Generator] = None,
+                    dropout_block: Optional[Tuple[int, int]] = None
                     ) -> torch.Tensor:
     """x: [B, T, F] in the params' dtype (33x26, or 21x48 in the HP pass).
     Returns softmax probs [B, 3], or the logits when train_mode (the
@@ -64,18 +73,20 @@ def variant_forward(params: Params, x: torch.Tensor, train_mode: bool = False,
 
     dropout_gen: a generator on x's device; dropout 0.2 is applied in
     train mode after the LSTM stack and after linear_1..4, drawing from it
-    in that order. None skips dropout."""
+    in that order. None skips dropout. dropout_block (first row, global
+    rows): x is that block of a global batch and each mask is drawn for
+    the global batch (a data-parallel rank's step)."""
     layer = fused_bilstm_train if train_mode else fused_bilstm
     h = layer(params["encoder"], x)
     h = layer(params["decoder"], h)
     drop = train_mode and dropout_gen is not None
     if drop:
-        h = _dropout(h, 0.2, dropout_gen)
+        h = _dropout(h, 0.2, dropout_gen, dropout_block)
     h = h.reshape(h.shape[0], -1)
     for name in ("linear_1", "linear_2", "linear_3", "linear_4"):
         h = F.selu(linear(params[name], h))
         if drop:
-            h = _dropout(h, 0.2, dropout_gen)
+            h = _dropout(h, 0.2, dropout_gen, dropout_block)
     h = F.selu(linear(params["linear_5"], h))
     logits = linear(params["output_layer_type"], h)
     if train_mode:

@@ -50,8 +50,10 @@ def call_variant(config: PipelineConfig) -> dict:
     """Run the 3-stage pipeline; returns the output VCF paths.
 
     The model forward runs on `config.device` ("cuda" by default); asking
-    for CUDA where there is none raises before any stage starts. Runs on a
-    single host (parallel/multihost.py)."""
+    for CUDA where there is none raises before any stage starts. Several
+    hosts (--num_hosts/--host_id, or a torch.distributed coordinator)
+    each run their stripe of the regions and host 0 writes the VCFs after
+    the candidate gather (parallel/multihost.py)."""
     from pepper_tpu_torch.parallel import multihost
     from pepper_tpu_torch.runtime.streaming import resolve_device
 

@@ -1,5 +1,5 @@
 """Polish stage 2 — consensus inference (sliding-window biGRU with vote
-accumulation) on one device.
+accumulation).
 
 Parity: pepper/modules/python/models/predict_distributed_cpu.py:19-105 and
 the JAX package's polish/consensus.py. A 100-wide window slides with stride
@@ -8,7 +8,9 @@ from window to window, overlapping softmax votes are added in scan order,
 and phred comes from the vote fraction. The JAX package traces the window
 loop into one jitted scan; here it is a Python loop over the 19 windows
 whose two biGRU layers each launch kernel K2 on the card
-(ops/fused_gru.py).
+(ops/fused_gru.py). The vote function also runs over a mesh of devices
+(batch split, parameters replicated), as the JAX one does; the runner and
+the streamed polish use one device, as the JAX ones do.
 """
 import os
 import sys
@@ -50,28 +52,48 @@ def window_votes(cparams, x: torch.Tensor) -> torch.Tensor:
     return votes
 
 
-def make_window_vote_fn(params, device, dtype: torch.dtype):
+def make_window_vote_fn(params, device, dtype: torch.dtype, mesh=None):
     """(uint8 images [B,1000,10] on `device`) -> (base_labels int32
     [B,1000], phred f32 [B,1000]) with the reference's window/vote/phred
     semantics. `params` is the numpy parameter tree (checkpoint loaders);
-    the model runs in `dtype`, the votes, softmax and phred in f32."""
+    the model runs in `dtype`, the votes, softmax and phred in f32.
+
+    mesh: optional list of devices (parallel/mesh.py): the parameters are
+    replicated over it, and the batch splits into one contiguous block per
+    entry, voted by that entry's replica on its device and stream (K2 38
+    times per block on a card); the labels and phred come back on
+    `device`. B must be a multiple of the mesh's size."""
     seq_len = PolishImageOptions.SEQ_LENGTH
     overlap = PolishImageOptions.SEQ_OVERLAP
-    cparams = params_from_jax(params, device, dtype)
+    devices = [torch.device(device)] if mesh is None else list(mesh)
+    replicas = [params_from_jax(params, dev, dtype) for dev in devices]
     # positions covered by two windows count two votes, the edges one
-    counts = torch.full((seq_len,), 2.0, device=device)
-    counts[:overlap] = 1.0
-    counts[seq_len - overlap:] = 1.0
+    counts = []
+    for dev in devices:
+        c = torch.full((seq_len,), 2.0, device=dev)
+        c[:overlap] = 1.0
+        c[seq_len - overlap:] = 1.0
+        counts.append(c)
 
-    def fn(images: torch.Tensor):
+    def vote(r: int, images: torch.Tensor):
         with torch.inference_mode():
-            votes = window_votes(cparams, images.to(dtype))
+            votes = window_votes(replicas[r], images.to(dtype))
             base_values = votes.amax(dim=2)
             base_labels = torch.argmax(votes, dim=2).to(torch.int32)
             phred = -10.0 * torch.log10(
-                torch.clamp(1.0 - base_values / counts, min=1e-10))
+                torch.clamp(1.0 - base_values / counts[r], min=1e-10))
             return base_labels, torch.clamp(phred, max=100.0)
 
+    if mesh is None:
+        return lambda images: vote(0, images)
+    from pepper_tpu_torch.ops import pack_cache
+    from pepper_tpu_torch.parallel.mesh import map_replicas, replica_streams
+    streams = replica_streams(devices)
+
+    def fn(images: torch.Tensor):
+        return map_replicas(devices, streams, vote, images)
+
+    pack_cache.reserve(fn, 2 * len(devices))   # K2's two layers a replica
     return fn
 
 
@@ -123,7 +145,7 @@ class ConsensusRunner:
             host_out.copy_(labels, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
-        return _PendingBatch(host_out, done, host_in)
+        return _PendingBatch(host_out, [done], host_in)
 
 
 def pad_consensus_batch(images: list, batch_size: int) -> np.ndarray:

@@ -57,9 +57,10 @@ def resolve_device(device) -> torch.device:
 
 
 class _PendingBatch:
-    """One in-flight batch: its own pinned output buffer, filled by an
-    asynchronous D2H copy that `done` marks complete. np.asarray() waits
-    for the event (on the flusher thread) and returns the probabilities."""
+    """One in-flight batch: its own pinned output buffer, filled by
+    asynchronous D2H copies that the events in `done` mark complete (one
+    per replica that wrote a slice of it). np.asarray() waits for them (on
+    the flusher thread) and returns the probabilities."""
 
     def __init__(self, host_out: torch.Tensor, done, host_in: torch.Tensor):
         self._host_out = host_out
@@ -67,47 +68,66 @@ class _PendingBatch:
         self._host_in = host_in   # pinned input: held until the batch is done
 
     def __array__(self, dtype=None, copy=None):
-        self._done.synchronize()
+        for event in self._done:
+            event.synchronize()
         out = self._host_out.numpy()
         return out if dtype is None else out.astype(dtype)
 
 
 class DeviceRunner:
-    """Batched classifier forward with fixed-shape batches on one device.
+    """Batched classifier forward with fixed-shape batches over a mesh of
+    devices (parallel/mesh.py).
 
-    The tail is padded to the fixed batch. Images cross to the card as int8
-    from pinned memory and are cast on the device; bf16 on CUDA, f32 on
-    the CPU or with PEPPER_TPU_PRECISION=f32. All device work is issued on
-    one stream held by the runner, and each batch's probabilities come back
-    by an asynchronous copy completed by a CUDA event, so `submit` never
-    waits for the device. Shared by the staged (runtime/inference.py) and
-    streaming paths."""
+    The tail is padded to the fixed batch, a multiple of the mesh's size.
+    `device` is "cuda" (every visible card, as the JAX runner shards over
+    every local device), "cuda:N" (one card), "cpu", or a list of devices
+    (a mesh; repeats allowed). Each mesh entry holds its own parameter
+    replica and, on a card, its own stream and event: a batch is split into
+    one contiguous block per entry, and each block crosses to its card as
+    int8 from pinned memory, is cast there, runs `variant_forward` (kernel
+    K1 twice) and comes back by an asynchronous copy into its slice of one
+    pinned output buffer, so `submit` never waits for a device. bf16 on
+    CUDA, f32 on the CPU or with PEPPER_TPU_PRECISION=f32. Shared by the
+    staged (runtime/inference.py) and streaming paths."""
 
     def __init__(self, params, batch_size: int = 2048, device="cuda"):
         from pepper_tpu_torch.models.checkpoint import params_from_jax
+        from pepper_tpu_torch.ops import pack_cache
+        from pepper_tpu_torch.parallel.mesh import (mesh_for,
+                                                    pad_to_multiple,
+                                                    replica_streams)
 
-        self.device = resolve_device(device)
+        self.mesh = mesh_for(device)
+        self.device = self.mesh[0]
         floor = min(2048, int(os.environ.get("PEPPER_TPU_MIN_DEVICE_BATCH",
                                              "2048")))
-        self.batch = max(batch_size, floor)
+        self.batch = pad_to_multiple(max(batch_size, floor), len(self.mesh))
         use_bf16 = (os.environ.get("PEPPER_TPU_PRECISION", "bf16") != "f32"
                     and self.device.type == "cuda")
         self.dtype = torch.bfloat16 if use_bf16 else torch.float32
-        self._params = params_from_jax(params, self.device, self.dtype)
-        self._stream = None
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            # the parameter uploads were issued on the current stream
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._replicas = [params_from_jax(params, dev, self.dtype)
+                          for dev in self.mesh]
+        # K1 packs each replica's two biLSTM layers once
+        # (ops/pack_cache.py): room for all of them between batches
+        pack_cache.reserve(self, 2 * len(self.mesh))
+        self._streams = replica_streams(self.mesh)
 
-    def forward(self, images8: torch.Tensor) -> torch.Tensor:
-        """int8 images [B, T, F] on the runner's device (33x26, or 21x48 in
-        the HP pass: the widths come from the images and the checkpoint)
-        -> f32 probs."""
+    def _forward(self, r: int, images8: torch.Tensor) -> torch.Tensor:
         from pepper_tpu_torch.models.variant_model import variant_forward
         with torch.inference_mode():
-            return variant_forward(self._params,
+            return variant_forward(self._replicas[r],
                                    images8.to(self.dtype)).float()
+
+    def forward(self, images8: torch.Tensor) -> torch.Tensor:
+        """int8 images [B, T, F] on the runner's first device (33x26, or
+        21x48 in the HP pass: the widths come from the images and the
+        checkpoint) -> f32 probs there. Over a mesh of n entries, B splits
+        into n blocks, each run by its replica on its device and stream."""
+        if len(self.mesh) == 1:
+            return self._forward(0, images8)
+        from pepper_tpu_torch.parallel.mesh import map_replicas
+        return map_replicas(self.mesh, self._streams, self._forward,
+                            images8)
 
     def submit(self, images8: np.ndarray):
         """Enqueue one batch; returns an array-like (np.asarray) whose first
@@ -124,11 +144,17 @@ class DeviceRunner:
         staged[n:] = 0
         host_out = torch.empty((self.batch, 3), dtype=torch.float32,
                                pin_memory=True)
-        with torch.cuda.stream(self._stream):
-            probs = self.forward(host_in.to(self.device, non_blocking=True))
-            host_out.copy_(probs, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
+        from pepper_tpu_torch.parallel.mesh import run_replicas
+        rows = self.batch // len(self.mesh)
+
+        def run(r: int, block: torch.Tensor) -> torch.cuda.Event:
+            host_out[r * rows:(r + 1) * rows].copy_(self._forward(r, block),
+                                                    non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            return event
+
+        done = run_replicas(self.mesh, self._streams, run, host_in)
         return _PendingBatch(host_out, done, host_in)
 
 
@@ -139,10 +165,11 @@ def get_device_runner(model_path: str, batch_size: int,
                       device="cuda") -> DeviceRunner:
     """Process-wide DeviceRunner cache: the checkpoint load + device
     placement of params is identical for every stage-2 invocation of the
-    same model on the same device."""
+    same model on the same mesh."""
+    from pepper_tpu_torch.parallel.mesh import mesh_for
     key = (os.path.abspath(model_path), max(batch_size, 2048),
            os.environ.get("PEPPER_TPU_PRECISION", "bf16"),
-           str(resolve_device(device)))
+           tuple(str(d) for d in mesh_for(device)))
     if key not in _runner_cache:
         from pepper_tpu_torch.runtime.inference import _load_model_params
         _runner_cache[key] = DeviceRunner(_load_model_params(model_path),

@@ -1,4 +1,4 @@
-"""Polish-model training on one device (PyTorch).
+"""Polish-model training, on one device or data parallel (PyTorch).
 
 Parity: pepper/modules/python/models/train_distributed.py and
 pepper_tpu/train/polish_train.py — per 100-wide window (jump 50) of each
@@ -13,16 +13,23 @@ biGRU step loop (models/rnn.py::gru), as the JAX trainer differentiates
 its `lax.scan`; the eval (`polish_accuracy`) runs under inference_mode
 with `fused_rnn=True`, which on a CUDA device launches kernel K2 twice a
 window. The optimizer is variant training's Adam (L2 weight decay added to
-the gradient). The JAX package's mesh becomes one device; the checkpoints
-(`PEPPER_POLISH_EPOCH_<n>.npz`, `PEPPER_POLISH_BEST.npz`, with the
-optimizer state as `__opt__/` leaves) are the JAX package's format, so a
-run resumes from either package's file.
+the gradient). The checkpoints (`PEPPER_POLISH_EPOCH_<n>.npz`,
+`PEPPER_POLISH_BEST.npz`, with the optimizer state as `__opt__/` leaves)
+are the JAX package's format, so a run resumes from either package's file.
+
+Data parallel, as variant training (train/variant_train.py): the JAX
+package's mesh becomes one rank per card of a torch.distributed group.
+Each rank takes its contiguous block of every global batch and carries the
+hidden state of its own rows from window to window; the loss is a mean, so
+each window's gradients and loss are averaged over the ranks (equal
+blocks) in one flat buffer. The eval splits over the ranks and sums the
+confusion matrices; only rank 0 writes.
 """
 import os
 import sys
 import time
 from datetime import datetime
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,11 +42,18 @@ from pepper_tpu_torch.models.polish_model import (init_hidden,
 from pepper_tpu_torch.options import PolishImageOptions, PolishTrainOptions
 from pepper_tpu_torch.runtime.inference import _load_model_params
 from pepper_tpu_torch.runtime.streaming import resolve_device
-from pepper_tpu_torch.train.variant_train import (make_optimizer,
+from pepper_tpu_torch.parallel import multihost
+from pepper_tpu_torch.parallel.mesh import rank_block
+from pepper_tpu_torch.train.variant_train import (check_group, flat_step,
+                                                  is_rank0, make_optimizer,
                                                   optimizer_leaves,
+                                                  reduce_flat,
                                                   restore_optimizer,
+                                                  set_flat_grads,
                                                   set_learning_rate,
-                                                  sorted_leaves, trainable)
+                                                  sorted_leaves,
+                                                  sum_over_ranks,
+                                                  train_device, trainable)
 
 Arrays = Tuple[np.ndarray, np.ndarray]
 
@@ -88,10 +102,18 @@ def _hidden_size(params: Dict) -> int:
     return params["gru_encoder"]["weight_hh_l0"].shape[1]
 
 
-def make_polish_train_step(params: Dict, optimizer: torch.optim.Optimizer):
+def make_polish_train_step(params: Dict, optimizer: torch.optim.Optimizer,
+                           group=None, allreduce: Callable = reduce_flat):
     """step(chunk f32 [B,T,F], label_chunk [B,T], hidden [B,2,H]) ->
     (the decoder's final hidden, detached; the loss as a 0-d tensor), after
-    one update of `params` in place."""
+    one update of `params` in place.
+
+    group: a torch.distributed group. Then the inputs are this rank's rows
+    (its block of the global batch, its own hidden), the gradients and the
+    loss, in one `flat_step` buffer, are summed over the ranks by
+    `allreduce(flat, group)` and divided by the world size (the loss is a
+    mean over equal blocks; gloo has no AVG), and the returned loss is the
+    global batch's mean."""
     def step(chunk: torch.Tensor, label_chunk: torch.Tensor,
              hidden: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         optimizer.zero_grad(set_to_none=True)
@@ -99,6 +121,13 @@ def make_polish_train_step(params: Dict, optimizer: torch.optim.Optimizer):
                                             fused_rnn=False)
         loss = cross_entropy_mean(logits, label_chunk)
         loss.backward()
+        if group is not None:
+            import torch.distributed as dist
+            flat = flat_step(params, loss)
+            allreduce(flat, group)
+            flat /= dist.get_world_size(group)
+            set_flat_grads(params, flat)
+            loss = flat[-1]
         optimizer.step()
         return hidden_out.detach(), loss.detach()
 
@@ -120,25 +149,31 @@ def _upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def polish_accuracy(params: Dict, images: np.ndarray, labels: np.ndarray,
-                    batch_size: int = 64) -> Tuple[np.ndarray, float]:
+                    batch_size: int = 64, group=None
+                    ) -> Tuple[np.ndarray, float]:
     """Windowed eval (reference test.py semantics) on the parameters'
     device: (confusion matrix int64 [5,5] true x predicted, accuracy %).
-    Runs `polish_forward(fused_rnn=True)` under inference_mode."""
+    Runs `polish_forward(fused_rnn=True)` under inference_mode; under a
+    group each rank evaluates its block of the images and the matrices
+    are summed."""
     window = PolishTrainOptions.TRAIN_WINDOW
     n_cls = PolishImageOptions.TOTAL_LABELS
     device = next(p for _, p in sorted_leaves(params)).device
     hidden_size = _hidden_size(params)
     cm = np.zeros((n_cls, n_cls), np.int64)
+    first, end = rank_block(len(images), group)
     with torch.inference_mode():
-        for lo in range(0, len(images), batch_size):
-            x = _upload(images[lo:lo + batch_size], device).float()
-            y = np.asarray(labels[lo:lo + batch_size]).astype(np.int64)
+        for lo in range(first, end, batch_size):
+            hi = min(lo + batch_size, end)
+            x = _upload(images[lo:hi], device).float()
+            y = np.asarray(labels[lo:hi]).astype(np.int64)
             hidden = init_hidden(x.shape[0], hidden_size, device=device)
             for i in _windows():
                 logits, hidden = polish_forward(
                     params, x[:, i:i + window], hidden, fused_rnn=True)
                 pred = logits.argmax(-1).cpu().numpy()
                 np.add.at(cm, (y[:, i:i + window], pred), 1)
+    cm = sum_over_ranks(cm, device, group)
     return cm, 100.0 * np.trace(cm) / max(1, cm.sum())
 
 
@@ -150,14 +185,27 @@ def train_polish_loop(train: Arrays, test: Optional[Arrays], model_dir: str,
     """The training loop over labeled images in memory: `train` and `test`
     are (images [N,1000,10], labels [N,1000]) pairs (`test` may be None:
     then no eval runs and only the best checkpoint is written, each
-    epoch). Returns the best model's path."""
-    device = resolve_device(device)
+    epoch). Returns the best model's path.
+
+    In a torch.distributed group (`multihost.process_group()`) every rank
+    runs this loop over the same arrays and seed: batch_size is the global
+    batch, each rank steps on its block of it and on its card, and only
+    rank 0 writes."""
+    group = multihost.process_group()
+    check_group(group)
+    device = train_device(device, group)
+    rank0 = is_rank0(group)
+    log = _log if rank0 else (lambda msg: None)
     images, labels = train
     if images is None or not len(images):
         raise ValueError("no labeled polish images found")
+    first, end = rank_block(batch_size, group, exact=True)
     test_images, test_labels = test if test is not None else (None, None)
-    os.makedirs(model_dir, exist_ok=True)
-    _log(f"TRAIN SEQUENCES: {len(images)}  DEVICE: {device}")
+    if rank0:
+        os.makedirs(model_dir, exist_ok=True)
+    log(f"TRAIN SEQUENCES: {len(images)}  DEVICE: {device}"
+        + ("" if group is None else
+           f"  RANKS: {multihost.host_count()} (batch {batch_size} global)"))
 
     if retrain_model_path:
         params = trainable(_load_model_params(retrain_model_path), device)
@@ -170,16 +218,21 @@ def train_polish_loop(train: Arrays, test: Optional[Arrays], model_dir: str,
         saved = load_opt_state(retrain_model_path)
         if saved is not None:
             opt_steps = restore_optimizer(optimizer, params, saved)
-            _log("OPTIMIZER STATE RESTORED")
+            log("OPTIMIZER STATE RESTORED")
     set_learning_rate(optimizer, lr)
-    step_fn = make_polish_train_step(params, optimizer)
+    step_fn = make_polish_train_step(params, optimizer, group)
     hidden_size = _hidden_size(params)
 
     # run-stamped stats artifacts (reference train_distributed.py)
     stats_dir = os.path.join(model_dir,
                              "stats_" + time.strftime("%m%d%Y_%H%M%S"))
-    os.makedirs(stats_dir, exist_ok=True)
+    if rank0:
+        os.makedirs(stats_dir, exist_ok=True)
     cm_path = os.path.join(stats_dir, "confusion_matrix.txt")
+
+    def stats_file(name):
+        return open(os.path.join(stats_dir, name) if rank0 else os.devnull,
+                    "w")
 
     window = PolishTrainOptions.TRAIN_WINDOW
     rng = np.random.RandomState(seed)
@@ -187,47 +240,51 @@ def train_polish_loop(train: Arrays, test: Optional[Arrays], model_dir: str,
     best_accuracy = -1.0
     best_path = os.path.join(model_dir, "PEPPER_POLISH_BEST.npz")
     t0 = time.time()
-    with open(os.path.join(stats_dir, "train_loss.csv"), "w") as train_csv, \
-            open(os.path.join(stats_dir, "test_loss.csv"), "w") as test_csv:
+    with stats_file("train_loss.csv") as train_csv, \
+            stats_file("test_loss.csv") as test_csv:
         for epoch in range(epoch_limit):
             order = rng.permutation(len(images))
             total_loss, total_windows = 0.0, 0
             for lo in range(0, len(order) - batch_size + 1, batch_size):
-                idx = order[lo:lo + batch_size]
+                idx = order[lo:lo + batch_size][first:end]   # this rank's
                 x = _upload(images[idx], device).float()
                 y = _upload(np.asarray(labels[idx]).astype(np.int64), device)
-                hidden = init_hidden(batch_size, hidden_size, device=device)
+                hidden = init_hidden(len(idx), hidden_size, device=device)
                 for i in _windows():
                     hidden, loss = step_fn(x[:, i:i + window],
                                            y[:, i:i + window], hidden)
                     total_loss += float(loss)
                     total_windows += 1
                     steps += 1
-            opt_state = optimizer_leaves(optimizer, params,
-                                         opt_steps + steps)
             epoch_loss = total_loss / max(1, total_windows)
             train_csv.write(f"{epoch + 1},{epoch_loss}\n")
             if test_images is None:
-                save_checkpoint(best_path, params, {"epochs": epoch + 1},
-                                opt_state=opt_state)
+                if rank0:
+                    save_checkpoint(best_path, params, {"epochs": epoch + 1},
+                                    opt_state=optimizer_leaves(
+                                        optimizer, params, opt_steps + steps))
                 continue
-            cm, accuracy = polish_accuracy(params, test_images, test_labels)
-            _log(f"EPOCH {epoch + 1} LOSS {epoch_loss:.4f} "
-                 f"ACCURACY {accuracy:.3f}")
+            cm, accuracy = polish_accuracy(params, test_images, test_labels,
+                                           group=group)
+            log(f"EPOCH {epoch + 1} LOSS {epoch_loss:.4f} "
+                f"ACCURACY {accuracy:.3f}")
             test_csv.write(f"{epoch + 1},{epoch_loss},{accuracy}\n")
-            with open(cm_path, "w") as fh:
-                fh.write(f"epoch {epoch + 1} accuracy {accuracy:.4f}\n")
-                fh.write(np.array2string(cm) + "\n")
-            meta = {"epochs": epoch + 1, "accuracy": accuracy}
             paths = [os.path.join(model_dir,
                                   f"PEPPER_POLISH_EPOCH_{epoch + 1}.npz")]
             if accuracy > best_accuracy:
                 best_accuracy = accuracy
                 paths.append(best_path)
-            for path in paths:
-                save_checkpoint(path, params, meta, opt_state=opt_state)
-    _log(f"POLISH TRAINING COMPLETE [{time.time() - t0:.1f}s] "
-         f"BEST ACCURACY: {best_accuracy:.3f} STATS: {stats_dir}")
+            if rank0:
+                with open(cm_path, "w") as fh:
+                    fh.write(f"epoch {epoch + 1} accuracy {accuracy:.4f}\n")
+                    fh.write(np.array2string(cm) + "\n")
+                meta = {"epochs": epoch + 1, "accuracy": accuracy}
+                opt_state = optimizer_leaves(optimizer, params,
+                                             opt_steps + steps)
+                for path in paths:
+                    save_checkpoint(path, params, meta, opt_state=opt_state)
+    log(f"POLISH TRAINING COMPLETE [{time.time() - t0:.1f}s] "
+        f"BEST ACCURACY: {best_accuracy:.3f} STATS: {stats_dir}")
     return best_path
 
 
@@ -238,7 +295,8 @@ def train_polish(train_image_dir: str, test_image_dir: str, model_dir: str,
                  device="cuda") -> str:
     """`train_polish_loop` on the polish image stores of two directories
     (h5py). `device` is "cuda" (raises when there is no CUDA device) or
-    "cpu". Returns the best model's path."""
+    "cpu". Data parallel in a torch.distributed group (see
+    `train_polish_loop`). Returns the best model's path."""
     resolve_device(device)   # before any image is read
     train = load_polish_training_data(train_image_dir)
     test = load_polish_training_data(test_image_dir)

@@ -668,3 +668,108 @@ def test_hp_runner_batch_launches_k1_at_21x48(cuda_device, monkeypatch):
                       .submit(images))[:300]
     assert np.abs(probs["f32"] - want).max() <= 1e-3
     assert np.abs(probs["bf16"] - want).max() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_two_replica_runner_on_one_card_matches_one_replica(cuda_device,
+                                                            monkeypatch):
+    """A 2-entry mesh on one card (two parameter replicas, each on its own
+    stream) against one replica, bf16. K1 (`cluster_mma` at every row
+    count) takes each row on its own: on the two halves of a batch it
+    gives the whole's bits. The cuBLAS GEMMs around it choose their kernel
+    by row count, so the probabilities agree within bf16 rounding (1e-2),
+    a class changing only at a top-two margin that small. K1 launches
+    twice per replica."""
+    import numpy as np
+
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    monkeypatch.setenv("PEPPER_TPU_PRECISION", "bf16")
+    params = init_variant_params(torch.Generator().manual_seed(8))
+    tree = {grp: {k: v.numpy() for k, v in leaves.items()}
+            for grp, leaves in params.items()}
+    rng = np.random.default_rng(9)
+    images = rng.integers(-125, 126, (3000, 33, 26))
+    images[rng.random(images.shape) < 0.7] = 0
+    images = images.astype(np.int8)
+    two = DeviceRunner(tree, 4096, device=["cuda:0", "cuda:0"])
+    one = DeviceRunner(tree, 4096, device="cuda:0")
+    assert two.batch == one.batch == 4096 and len(two.mesh) == 2
+    before = fl.launches
+    got = np.asarray(two.submit(images))
+    assert fl.launches == before + 4
+    want = np.asarray(one.submit(images))
+    err = np.abs(got - want).max()
+    assert err <= 1e-2
+    flipped = got.argmax(1) != want.argmax(1)
+    top2 = np.sort(want, axis=1)[:, -2:]
+    assert (np.diff(top2[flipped], axis=1) <= 2 * err).all()
+    x8 = torch.from_numpy(images[:2048]).to(cuda_device)
+    assert (two.forward(x8) - one.forward(x8)).abs().max() <= 1e-2
+    enc = one._replicas[0]["encoder"]
+    pack = fl.packed_layer(enc, fl.select_kernel(2048, 33, 256,
+                                                 torch.bfloat16))
+    with torch.inference_mode():
+        xp = fl.packed_projections(pack, x8.to(torch.bfloat16))
+        whole = fl.bilstm_recurrence_packed(pack, *xp)
+        halves = torch.cat([
+            fl.bilstm_recurrence_packed(pack, *(p[:1024] for p in xp)),
+            fl.bilstm_recurrence_packed(pack, *(p[1024:] for p in xp))])
+    assert torch.equal(whole, halves)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_train_as_one_process(cuda_device,
+                                                         tmp_path):
+    """Two ranks of a gloo group over CUDA tensors on one card (NCCL
+    refuses two ranks on one card): 4 variant train steps with dropout on,
+    the ranks bit-identical and equal to one process that runs the two
+    blocks as in-process replicas; K3 and K4 launch in each rank."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rng = np.random.default_rng(10)
+    np.save(tmp_path / "images.npy",
+            rng.integers(-125, 126, (64, 33, 26)).astype(np.int8))
+    np.save(tmp_path / "labels.npy", rng.integers(0, 3, 64))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+
+    def rank_cmd(tag, *extra):
+        return subprocess.Popen(
+            [sys.executable, "-m", "pepper_tpu_torch.parallel.dp_rehearsal",
+             "variant", "--data", str(tmp_path), "--steps", "4", "--hidden",
+             "64", "--device", "cuda:0", "--dropout", "--out",
+             str(tmp_path / f"{tag}.npz"), *extra], cwd=root,
+            env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+
+    procs = [rank_cmd(f"rank{r}", "--rank", str(r), "--world", "2",
+                    "--backend", "gloo", "--coordinator",
+                    f"127.0.0.1:{port}") for r in range(2)]
+    procs.append(rank_cmd("single", "--blocks", "2"))
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=600)
+        finally:
+            p.kill()
+        assert p.returncode == 0, err.decode()[-3000:]
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    single = np.load(tmp_path / "single.npz")
+    keys = [k for k in single.files if not k.startswith("__")]
+    assert len(keys) == 28
+    for k in keys:
+        np.testing.assert_array_equal(ranks[0][k], ranks[1][k], err_msg=k)
+        np.testing.assert_allclose(ranks[0][k], single[k], rtol=5e-3,
+                                   atol=1e-4, err_msg=k)
+    np.testing.assert_allclose(ranks[0]["__losses__"], single["__losses__"],
+                               rtol=1e-4)
+    for r in ranks:
+        assert list(r["__launches__"]) == [8, 8]   # K3, K4: 2 per step

@@ -265,8 +265,9 @@ def test_dropout_is_seeded_rescaled_and_placed_as_in_jax(monkeypatch):
     shapes = []
     real = vm._dropout
 
-    def recording(t, rate, gen):
-        out = real(t, rate, gen)
+    def recording(t, rate, gen, block):
+        out = real(t, rate, gen, block)
+        assert block is None     # one process: the mask is the batch's
         shapes.append(tuple(t.shape))
         kept = out != 0
         assert rate == 0.2
