@@ -88,7 +88,24 @@ at once, into the git-ignored build/ directory, then:
      launched in each rank, and prints the ms per step and the
      all-reduce's share of it;
  16. runs parallel/dryrun.py::dryrun_multichip(2) on the card;
- 17. prints one JSON line describing every ported kernel.
+ 17. runs the alternate models at full width on the card in f32 (TF32
+     off) against the port on the CPU in f32: the transformer (F=26,
+     window 33, 6 layers, d=104) and the no-CNN biLSTM (hidden 128, a
+     random carried state) on 4096 rows, the Seq2Seq encoder (hidden 128,
+     3 biGRU layers) on a [64,1,1000,20] image and its decoder (seq_len
+     1000, 5 classes) on that context: probabilities, hidden states and
+     attention within 1e-4, and no kernel launched (none serves them);
+     prints each one's ms per forward and the bf16 error;
+ 18. runs the legacy chunked-HP chain on phase 11's dataset: the port's
+     RegionalSummaryHP makes the 48-feature matrix, make_chunked_hp_images
+     chunks it, a full-width polish model (F=48, H=128, 5 classes) votes
+     through K2 (76 launches per 64-chunk batch, checked) on the card in
+     bf16 and f32 and through the plain step loop on the CPU, and
+     CandidateFinderCPP.find_candidates_hp reads each run's votes from the
+     in-memory records: the f32 votes within +-2 of the CPU's and the same
+     candidates called; prints ms per batch, K2's share of it, and the
+     bf16 vote and candidate differences;
+ 19. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -120,6 +137,7 @@ PH = 128           # polish biGRU hidden size
 WINDOW = 100       # polish window (19 per 1000-long sequence)
 POLISH_BATCH = 128
 SHARD_ROWS = 16384   # the streamed runner's batch on the card
+ALT_ROWS = 4096      # rows of the alternate classifiers' batch (phase 17)
 # builds the tensor-core K1 and K2 with tanhf/expf in place of tanh.approx
 EXACT_ACTIVATIONS = ("PEPPER_EXACT_ACTIVATIONS",)
 
@@ -262,10 +280,11 @@ def images(rng, n: int, window: int = 33, features: int = 26) -> np.ndarray:
     return x.astype(np.int8)
 
 
-def numpy_polish_tree(seed: int, hidden: int = PH):
+def numpy_polish_tree(seed: int, hidden: int = PH, features: int = 10):
     """Seeded torch-default init of the polish model (biGRU 10->128, biGRU
-    256->128, Linear 256->5; other hidden sizes for kernel edge cases) as
-    numpy arrays with torch-layout names."""
+    256->128, Linear 256->5; other hidden sizes for kernel edge cases, 48
+    input features for the legacy chunked-HP vote) as numpy arrays with
+    torch-layout names."""
     rng = np.random.default_rng(seed)
 
     def u(shape, fan):
@@ -281,7 +300,7 @@ def numpy_polish_tree(seed: int, hidden: int = PH):
             out["bias_hh_l0" + sfx] = u((3 * hidden,), hidden)
         return out
 
-    return {"gru_encoder": rnn(10), "gru_decoder": rnn(2 * hidden),
+    return {"gru_encoder": rnn(features), "gru_decoder": rnn(2 * hidden),
             "dense1": {"weight": u((5, 2 * hidden), 2 * hidden),
                        "bias": u((5,), 2 * hidden)}}
 
@@ -1761,7 +1780,8 @@ def phase_hp_end_to_end(dev, work_dir, name):
     print(f"merge_variants: {len(merged)} records ({tags.count('DV')} C=DV "
           f"at the {len(dv_keys)} DeepVariant positions, {tags.count('P')} "
           f"C=P), indexed", flush=True)
-    return launches
+    return launches, {"bam": bam, "fasta": fasta, "contig": genome[0][0],
+                      "length": genome_len}
 
 
 # -------------------------------------------------------------- phase 12
@@ -2293,12 +2313,363 @@ def phase_dryrun(dev):
           and np.isfinite(out["loss"]), "the dry run's outputs")
 
 
+# -------------------------------------------------------------- phase 17
+def numpy_tree_like(tree, seed: int):
+    """Seeded numpy leaves of the shapes of `tree` (a parameter tree from
+    one of the port's init functions): weights and biases
+    U(+-1/sqrt(fan in)), BatchNorm statistics and 1-D scales near 1, so
+    every normalisation is exercised."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node):
+        out = {}
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                out[k] = fill(v)
+                continue
+            shape = tuple(v.shape)
+            if k == "running_var" or (k == "weight" and len(shape) == 1):
+                leaf = rng.uniform(0.5, 1.5, shape)
+            elif k == "running_mean":
+                leaf = rng.normal(0.0, 0.1, shape)
+            else:
+                b = 1.0 / np.sqrt(int(np.prod(shape[1:])) if len(shape) > 1
+                                  else shape[0])
+                leaf = rng.uniform(-b, b, shape)
+            out[k] = leaf.astype(np.float32)
+        return out
+
+    return fill(tree)
+
+
+def phase_alternates(dev, name):
+    """The alternate models at full width on the card (f32, TF32 off)
+    against the port on the CPU at f32; no kernel serves them."""
+    from pepper_tpu_torch.models import polish_seq2seq as s2s
+    from pepper_tpu_torch.models import variant_no_cnn as no_cnn
+    from pepper_tpu_torch.models import variant_transformer as tf
+    from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.ops import fused_gru as fg
+    from pepper_tpu_torch.ops import fused_lstm as fl
+
+    tol = 1e-4    # probabilities and hidden states, card f32 vs cpu f32
+    rows, images_b, layers, hidden = ALT_ROWS, 64, 3, 128
+    gen = torch.Generator().manual_seed(171)
+    rng = np.random.default_rng(172)
+    trees = {
+        "transformer": numpy_tree_like(tf.init_transformer_params(gen), 173),
+        "no_cnn": numpy_tree_like(no_cnn.init_no_cnn_params(gen), 174),
+        "encoder": numpy_tree_like(s2s.init_encoder_params(
+            gen, gru_layers=layers, hidden_size=hidden), 175),
+        "decoder": numpy_tree_like(s2s.init_decoder_params(
+            gen, hidden, layers, 5, 1000), 176),
+    }
+    x = torch.from_numpy(images(rng, rows)).float()
+    state = [torch.from_numpy(rng.standard_normal((rows, 2, hidden)).astype(
+        np.float32)) for _ in range(2)]
+    image = torch.from_numpy(rng.standard_normal(
+        (images_b, 1, 1000, 20)).astype(np.float32))
+    h_enc = torch.from_numpy(0.5 * rng.standard_normal(
+        (images_b, 2 * layers, hidden)).astype(np.float32))
+    onehot = torch.nn.functional.one_hot(torch.from_numpy(
+        rng.integers(0, 1000, images_b)), 1000).float()
+
+    def runs(device, dtype):
+        """Each model's outputs (probabilities, then hidden states) and a
+        thunk that runs its forward again, on `device` in `dtype`."""
+        p = {k: params_from_jax(t, device, dtype) for k, t in trees.items()}
+
+        def put(t):
+            return t.to(device, dtype)
+
+        xs, hs, cs = put(x), put(state[0]), put(state[1])
+        img, h0, oh = put(image), put(h_enc), put(onehot)
+        fwd = {
+            "transformer": lambda: (tf.transformer_forward(
+                p["transformer"], xs),),
+            "no_cnn": lambda: (no_cnn.no_cnn_forward(p["no_cnn"], xs, hs,
+                                                     cs),),
+            "encoder": lambda: s2s.encoder_forward(p["encoder"], img, h0,
+                                                   layers),
+        }
+        with torch.inference_mode():
+            out = {k: f() for k, f in fwd.items()}
+            ctx, h_final = out["encoder"]
+            fwd["decoder"] = lambda: s2s.decoder_forward(
+                p["decoder"], oh, ctx, h_final, layers)
+            logits, h_dec, attn = fwd["decoder"]()
+            out["decoder"] = (torch.softmax(logits.float(), dim=-1), h_dec,
+                              attn)
+        return out, fwd
+
+    launches = (fl.launches, fg.launches)
+    want, _ = runs(torch.device("cpu"), torch.float32)
+    got, fwd = runs(dev, torch.float32)
+    got_bf16, _ = runs(dev, torch.bfloat16)
+    check((fl.launches, fg.launches) == launches, "an alternate model "
+          "launched a kernel (none serves them)")
+    errs, errs_bf16, ms = {}, {}, {}
+    for k in trees:
+        check(all(g.shape == w.shape and bool(torch.isfinite(g).all())
+                  for g, w in zip(got[k], want[k])),
+              f"{k}: malformed output on the card")
+        errs[k] = max(_max_err(g.cpu(), w) for g, w in zip(got[k], want[k]))
+        errs_bf16[k] = max(_max_err(g.cpu(), w)
+                           for g, w in zip(got_bf16[k], want[k]))
+        with torch.inference_mode():
+            ms[k] = median_ms(fwd[k], reps=3 if k == "encoder" else 10)
+    print(f"alternates at full width on {name}: transformer (F=26, window "
+          f"33, 6 layers, d=104, 8 heads) and no_cnn (hidden 128, random "
+          f"[B,2,128] state) on {rows} rows, the seq2seq encoder (hidden "
+          f"{hidden}, {layers} biGRU layers) on a [{images_b},1,1000,20] "
+          f"image and its decoder (seq_len 1000, 5 classes) on that context; "
+          f"max_abs_err card f32 vs cpu f32 (probabilities, hidden states, "
+          f"attention; tolerance {tol:g}): "
+          + ", ".join(f"{k} {errs[k]:.3e}" for k in trees)
+          + "; bf16 vs cpu f32: "
+          + ", ".join(f"{k} {errs_bf16[k]:.3e}" for k in trees)
+          + "; ms per f32 forward (CUDA events, median of 10, encoder of 3): "
+          + ", ".join(f"{k} {ms[k]:.3f}" for k in trees), flush=True)
+    for k in trees:
+        check(errs[k] <= tol, f"{k}: card f32 disagrees with cpu f32 "
+              f"({errs[k]:.3e})")
+
+
+# -------------------------------------------------------------- phase 18
+def _finder_candidates(result):
+    """The called candidates of a legacy finder's positional map, as
+    (pos, end, ref, alt, type, depth, support, genotype), with their
+    (alt_prob_h1, alt_prob_h2, non_ref_prob)."""
+    out = {}
+    for pos in sorted(result):
+        for c in result[pos]:
+            out[(c.pos, c.pos_end, c.allele.ref, c.allele.alt,
+                 c.allele.alt_type, c.depth, c.read_support, c.genotype)] = \
+                (c.alt_prob_h1, c.alt_prob_h2, c.non_ref_prob)
+    return out
+
+
+def record_k2_calls(polish_model):
+    """Wraps `polish_model.fused_bigru` (the biGRU layer `polish_forward`
+    calls with fused_rnn=True) so that each call's (params, x, h0) and
+    (out, h_final) are kept: the inputs and outputs K2 had on the path.
+    Returns (calls, restore)."""
+    calls, layer = [], polish_model.fused_bigru
+
+    def recorded(params, x, h0):
+        result = layer(params, x, h0)
+        calls.append((params, x, h0, result))
+        return result
+
+    polish_model.fused_bigru = recorded
+    return calls, lambda: setattr(polish_model, "fused_bigru", layer)
+
+
+def k2_calls_against_plain(calls):
+    """The max abs error of each recorded K2 call's out and h_final against
+    K2's plain version on the same inputs, in the same dtype."""
+    from pepper_tpu_torch.ops import fused_gru as fg
+
+    errs = []
+    with torch.inference_mode():
+        for params, x, h0, (out, h_n) in calls:
+            want = fg.bigru_recurrence_plain(
+                *fg.input_projections(params, x),
+                params["weight_hh_l0"].t(), params["weight_hh_l0_reverse"].t(),
+                params["bias_hh_l0"], params["bias_hh_l0_reverse"], h0[:, 0],
+                h0[:, 1])
+            errs.append(max(_max_err(out, want[0]), _max_err(h_n, want[1])))
+    return errs
+
+
+def phase_hp_legacy(dev, name, data):
+    """The legacy chunked-HP chain on phase 11's haplotype-tagged dataset:
+    the port's RegionalSummaryHP makes the 48-feature matrix,
+    make_chunked_hp_images chunks it, a full-width polish model votes
+    through K2, and the legacy HP finder reads the votes."""
+    from pepper_tpu_torch.encode.region_encoder_hp import RegionalSummaryHP
+    from pepper_tpu_torch.io.bam_reader import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.models import polish_model
+    from pepper_tpu_torch.ops import fused_gru as fg
+    from pepper_tpu_torch.pipelines import hp_legacy as hp
+    from pepper_tpu_torch.pipelines.candidate_finder_legacy import \
+        CandidateFinderCPP
+
+    batch = 64
+    per_batch = 19 * 2 * 2      # windows x biGRU layers x haplotypes
+    contig, end = data["contig"], data["length"] - 1
+    t0 = time.time()
+    reads = BamReader(data["bam"]).get_reads(contig, 0, end + 1)
+    ref = FastaReader(data["fasta"]).get_reference_sequence(contig, 0,
+                                                            end + 1)
+    summary = RegionalSummaryHP(contig, 0, end, ref)
+    summary.generate_summary(
+        reads, min_snp_baseq=1, min_indel_baseq=1, snp_freq_threshold=0.1,
+        insert_freq_threshold=0.15, delete_freq_threshold=0.15,
+        min_coverage_threshold=2, snp_candidate_freq_threshold=0.1,
+        indel_candidate_freq_threshold=0.1, candidate_support_threshold=2,
+        skip_indels=False, candidate_region_start=0, candidate_region_end=end)
+    chunks = hp.make_chunked_hp_images(summary.matrix, np.arange(end + 1),
+                                       np.zeros(end + 1, np.int64))
+    summaries = [dict(c, contig=contig, region_start=0, region_end=end)
+                 for c in chunks]
+    n_batches = -(-len(chunks) // batch)
+    tree = numpy_polish_tree(181, features=48)
+    print(f"legacy HP chain input: {len(reads)} reads, matrix "
+          f"{summary.matrix.shape}, {len(chunks)} chunks of 1000 in "
+          f"{n_batches} batches of {batch} [{time.time() - t0:.1f}s]",
+          flush=True)
+
+    prior = os.environ.get("PEPPER_TPU_PRECISION")
+
+    def vote(device, precision, fused_rnn=True):
+        os.environ["PEPPER_TPU_PRECISION"] = precision
+        fn = hp.load_hp_vote_fn(tree, device=device, fused_rnn=fused_rnn)
+        t = time.time()
+        records = list(hp.vote_records(summaries, fn, batch))
+        return fn, records, time.time() - t
+
+    calls, restore = record_k2_calls(polish_model)
+    try:
+        fg.launches = 0                       # count the main path only
+        mma_before = fg.kernel_launches["mma"]
+        fn_bf16, rec_bf16, wall_bf16 = vote(dev, "bf16")
+        launches = fg.launches
+        launches_mma = fg.kernel_launches["mma"] - mma_before
+        restore()
+        fg.launches = 0
+        _, rec_f32, wall_f32 = vote(dev, "f32")
+        launches_f32 = fg.launches
+        _, rec_cpu, wall_cpu = vote(torch.device("cpu"), "f32",
+                                    fused_rnn=False)
+        _, rec_plain_bf16, _ = vote(dev, "bf16", fused_rnn=False)
+    finally:
+        restore()
+        if prior is None:
+            os.environ.pop("PEPPER_TPU_PRECISION", None)
+        else:
+            os.environ["PEPPER_TPU_PRECISION"] = prior
+    check(launches == launches_f32 == per_batch * n_batches,
+          f"K2 launched {launches} (bf16) and {launches_f32} (f32) times "
+          f"for {n_batches} legacy HP batches, expected {per_batch} each")
+    # every bf16 launch of the path ran K2's tensor-core kernel; each is
+    # held against K2's plain version on the inputs it had, at phase 3's
+    # bf16 bound
+    k2_tol = 2e-2
+    check(launches_mma == launches == len(calls)
+          and all(x.dtype == torch.bfloat16 for _, x, _, _ in calls),
+          f"the bf16 legacy HP vote launched K2 mma {launches_mma} of "
+          f"{launches} times ({len(calls)} recorded)")
+    k2_errs = k2_calls_against_plain(calls)
+    del calls
+
+    def votes(records):
+        return np.stack([np.stack([r["base_predictions_hp1"],
+                                   r["base_predictions_hp2"]])
+                         for r in records])
+
+    v_cpu, v_f32, v_bf16 = votes(rec_cpu), votes(rec_f32), votes(rec_bf16)
+    v_plain_bf16 = votes(rec_plain_bf16)
+    check(v_f32.shape == v_cpu.shape == v_bf16.shape == (len(chunks), 2,
+                                                        1000, 5)
+          and v_f32.dtype == v_bf16.dtype == np.int32,
+          "legacy HP votes malformed")
+    err_f32 = int(np.abs(v_f32 - v_cpu).max())
+    n_bf16 = int((v_bf16.argmax(-1) != v_cpu.argmax(-1)).sum())
+    err_bf16_plain = int(np.abs(v_bf16 - v_plain_bf16).max())
+    n_bf16_plain = int((v_bf16.argmax(-1) != v_plain_bf16.argmax(-1)).sum())
+
+    x1 = torch.from_numpy(np.stack(
+        [np.asarray(c["image_hp1"], np.uint8) for c in chunks[:batch]]))
+    x2 = torch.from_numpy(np.stack(
+        [np.asarray(c["image_hp2"], np.uint8) for c in chunks[:batch]]))
+    x1, x2 = x1.to(dev), x2.to(dev)
+    batch_ms = median_ms(lambda: fn_bf16(x1, x2), reps=5)
+    per_kernel = device_breakdown(lambda: fn_bf16(x1, x2))
+
+    cf = CandidateFinderCPP(contig, 0, end)
+    found, finder_s = {}, {}
+    for label, recs in (("cpu", rec_cpu), ("cuda_f32", rec_f32),
+                        ("cuda_bf16", rec_bf16)):
+        t = time.time()
+        inputs = hp.predictions_to_finder_inputs(hp.HPPredictionList(recs))
+        check(len(inputs[0]) == end + 1, "the bridge lost positions")
+        found[label] = _finder_candidates(cf.find_candidates_hp(
+            data["bam"], data["fasta"], contig, 0, end, *inputs, False, 0.0))
+        finder_s[label] = time.time() - t
+    cpu, f32 = found["cpu"], found["cuda_f32"]
+    differ = sorted(set(cpu) ^ set(f32))
+    prob_err = max((max(abs(a - b) for a, b in zip(cpu[k], f32[k]))
+                    for k in set(cpu) & set(f32)), default=0.0)
+
+    print(f"legacy chunked-HP vote on {name}: polish model F=48 H={PH} 5 "
+          f"classes; K2 launches {launches} in {n_batches} batches "
+          f"({per_batch} per batch: 19 windows x 2 layers x 2 haplotypes; "
+          f"f32 run {launches_f32}); vote wall (host clock, all chunks) cuda "
+          f"bf16 {wall_bf16:.2f}s, cuda f32 {wall_f32:.2f}s, cpu f32 step "
+          f"loop {wall_cpu:.2f}s; one {batch}-chunk batch {batch_ms:.2f} ms "
+          f"bf16 (CUDA events, median of 5); int votes cuda f32 vs cpu "
+          f"max_abs_diff {err_f32} (tolerance 2); bf16 argmax differs at "
+          f"{n_bf16} of {v_cpu.shape[0] * 2000} (chunk, haplotype, "
+          f"position) slots", flush=True)
+    print(f"bf16 legacy HP vote, K2 mma on each of its {len(k2_errs)} "
+          f"launches vs K2's plain version on that launch's inputs: "
+          f"max_abs_err out/h_final {max(k2_errs):.3e} (tolerance "
+          f"{k2_tol:g}, phase 3's bf16 bound); bf16 votes through K2 vs "
+          f"the plain step loop on the card in bf16: int votes "
+          f"max_abs_diff {err_bf16_plain}, argmax differs at "
+          f"{n_bf16_plain} slots", flush=True)
+    check(max(k2_errs) <= k2_tol, f"K2 mma disagrees with its plain "
+          f"version on the bf16 legacy HP vote's inputs: {max(k2_errs)} > "
+          f"{k2_tol} at launch {int(np.argmax(k2_errs))}")
+    total = sum(per_kernel.values())
+    if total:
+        k2_ms = sum(ms for k, ms in per_kernel.items() if "bigru" in k)
+        print(f"profile of one {batch}-chunk legacy HP batch (torch.profiler,"
+              f" mean of 3): device busy {total:.2f} ms of {batch_ms:.2f} ms "
+              f"({100 * (1 - total / batch_ms):.0f}% idle); K2 {k2_ms:.2f} "
+              f"ms ({100 * k2_ms / total:.0f}% of busy, "
+              f"{100 * k2_ms / batch_ms:.0f}% of the batch)", flush=True)
+    else:
+        print("profile: torch.profiler recorded no device time (device "
+              "breakdown not measured)", flush=True)
+    print(f"legacy HP finder (CandidateFinderCPP.find_candidates_hp over "
+          f"{end + 1} bp): cpu {len(cpu)} candidates [{finder_s['cpu']:.1f}s]"
+          f", cuda f32 {len(f32)} ({len(differ)} differ: "
+          f"{differ[:5]}; probability max_abs_diff on the shared ones "
+          f"{prob_err:.3e}), cuda bf16 {len(found['cuda_bf16'])} "
+          f"({len(set(cpu) ^ set(found['cuda_bf16']))} differ from cpu)",
+          flush=True)
+    positions = np.stack([c["position"] for c in chunks])
+    for key in differ[:10]:
+        ci, j = np.nonzero(positions == key[0])
+        top2 = np.sort(v_cpu[ci, :, j], axis=-1)[..., -2:]
+        print(f"  differing candidate {key}: cpu top-two vote margins at "
+              f"position {key[0]} (per chunk, per haplotype) "
+              f"{(top2[..., 1] - top2[..., 0]).tolist()}", flush=True)
+    check(len(cpu) > 0, "the legacy HP finder found no candidate on the CPU")
+    check(err_f32 <= 2, f"cuda f32 legacy HP votes differ from the CPU's by "
+          f"{err_f32}")
+    check(not differ, "the legacy HP finder's candidates from the card's "
+          "f32 votes differ from the CPU's")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    try:
+        import pepper_tpu_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: the port's package is not beside this script "
+              f"({exc}); run it from the root of a checkout",
+              file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2320,7 +2691,7 @@ def main() -> int:
             dev, os.path.join(work_dir, "polish"), env["card"])
         k1["launches_trainer_evals"], k3["launches"], k4["launches"] = \
             phase_trainer(dev, os.path.join(work_dir, "train"), env["card"])
-        k1["launches_hp"] = phase_hp_end_to_end(
+        k1["launches_hp"], hp_data = phase_hp_end_to_end(
             dev, os.path.join(work_dir, "hp"), env["card"])
         k2["launches_polish_trainer_evals"] = phase_polish_trainer(
             dev, os.path.join(work_dir, "polish_train"), env["card"])
@@ -2331,6 +2702,8 @@ def main() -> int:
         k3["launches_ddp"] = [r[0] for r in ddp]
         k4["launches_ddp"] = [r[1] for r in ddp]
         phase_dryrun(dev)
+        phase_alternates(dev, env["card"])
+        k2["launches_hp_legacy"] = phase_hp_legacy(dev, env["card"], hp_data)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

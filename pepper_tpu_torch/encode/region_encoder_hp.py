@@ -17,6 +17,9 @@ the base encoder (region_encoder.py), preserved deliberately:
   - candidate window is 21x48 (CANDIDATE_WINDOW_SIZE=20); the midpoint
     re-encoding writes per-haplotype supports with NO sign flips
     (:964-1006).
+`generate_summary` also keeps the clamped full-region matrix [L,48] as
+`self.matrix` for the legacy chunked-HP chain (pipelines/hp_legacy.py);
+otherwise this is the JAX package's module with its imports rewritten.
 """
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -255,6 +258,9 @@ class RegionalSummaryHP:
         ins_pass &= selected
         del_pass &= selected
         np.clip(matrix[:L], MINV, MAXV, out=matrix[:L])
+        # the full-region matrix, which the legacy chunked-HP chain chunks
+        # (pipelines/hp_legacy.py::make_chunked_hp_images)
+        self.matrix = matrix[:L]
 
         if train_mode and self._labels_hp is not None:
             for i in range(L + 1):

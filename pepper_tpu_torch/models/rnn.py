@@ -9,7 +9,7 @@ package's .npz files load unchanged. The device paths run the fused kernels
 step loops they are held to.
 """
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -46,12 +46,15 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _lstm_direction(x_proj: torch.Tensor, w_hh: torch.Tensor,
-                    b_hh: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """x_proj: [B,T,4H] (input projection applied). Returns [B,T,H]."""
+                    b_hh: torch.Tensor, reverse: bool,
+                    h0: Optional[torch.Tensor] = None,
+                    c0: Optional[torch.Tensor] = None):
+    """x_proj: [B,T,4H] (input projection applied); h0, c0: [B,H] initial
+    state, zeros when None. Returns (out [B,T,H], h_final, c_final)."""
     B, T, _ = x_proj.shape
     H = w_hh.shape[1]
-    h = x_proj.new_zeros((B, H))
-    c = x_proj.new_zeros((B, H))
+    h = x_proj.new_zeros((B, H)) if h0 is None else h0
+    c = x_proj.new_zeros((B, H)) if c0 is None else c0
     out = x_proj.new_empty((B, T, H))
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
         gates = x_proj[:, t] + torch.matmul(h, w_hh.t()) + b_hh
@@ -59,7 +62,12 @@ def _lstm_direction(x_proj: torch.Tensor, w_hh: torch.Tensor,
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         out[:, t] = h
-    return out
+    return out, h, c
+
+
+def _projection(p: Params, x: torch.Tensor, suffix: str) -> torch.Tensor:
+    return linear({"weight": p["weight_ih_l0" + suffix],
+                   "bias": p["bias_ih_l0" + suffix]}, x)
 
 
 def lstm(p: Params, x: torch.Tensor, bidirectional: bool = True
@@ -68,16 +76,34 @@ def lstm(p: Params, x: torch.Tensor, bidirectional: bool = True
 
     x: [B,T,F] -> [B,T,2H] (fwd||bwd concat, matching torch output layout).
     """
-    out_f = _lstm_direction(linear({"weight": p["weight_ih_l0"],
-                                    "bias": p["bias_ih_l0"]}, x),
-                            p["weight_hh_l0"], p["bias_hh_l0"], False)
+    out_f = _lstm_direction(_projection(p, x, ""), p["weight_hh_l0"],
+                            p["bias_hh_l0"], False)[0]
     if not bidirectional:
         return out_f
-    out_b = _lstm_direction(linear({"weight": p["weight_ih_l0_reverse"],
-                                    "bias": p["bias_ih_l0_reverse"]}, x),
+    out_b = _lstm_direction(_projection(p, x, "_reverse"),
                             p["weight_hh_l0_reverse"],
-                            p["bias_hh_l0_reverse"], True)
+                            p["bias_hh_l0_reverse"], True)[0]
     return torch.cat([out_f, out_b], dim=-1)
+
+
+def lstm_with_state(p: Params, x: torch.Tensor, h0: torch.Tensor,
+                    c0: torch.Tensor):
+    """Bidirectional LSTM with an explicit initial state, as the JAX
+    package's (pepper_tpu/models/rnn.py:102-116).
+
+    x: [B,T,F]; h0, c0: [B,2,H] (direction-major). Returns (out [B,T,2H],
+    h_final [B,2,H], c_final [B,2,H]). Kernel K1 takes a zero initial state
+    and returns no final state, so this is the step loop on every device,
+    as the JAX package's scan is."""
+    out_f, hf, cf = _lstm_direction(_projection(p, x, ""), p["weight_hh_l0"],
+                                    p["bias_hh_l0"], False, h0[:, 0],
+                                    c0[:, 0])
+    out_b, hb, cb = _lstm_direction(_projection(p, x, "_reverse"),
+                                    p["weight_hh_l0_reverse"],
+                                    p["bias_hh_l0_reverse"], True, h0[:, 1],
+                                    c0[:, 1])
+    return (torch.cat([out_f, out_b], dim=-1), torch.stack([hf, hb], dim=1),
+            torch.stack([cf, cb], dim=1))
 
 
 def _gru_direction(x_proj: torch.Tensor, w_hh: torch.Tensor,
@@ -105,12 +131,9 @@ def gru(p: Params, x: torch.Tensor, h0: torch.Tensor):
 
     x: [B,T,F]; h0: [B,2,H] (direction-major, the JAX package's layout;
     torch.nn.GRU's is [2,B,H]). Returns (out [B,T,2H], h_final [B,2,H])."""
-    hf, out_f = _gru_direction(linear({"weight": p["weight_ih_l0"],
-                                       "bias": p["bias_ih_l0"]}, x),
-                               p["weight_hh_l0"], p["bias_hh_l0"],
-                               h0[:, 0], False)
-    hb, out_b = _gru_direction(linear({"weight": p["weight_ih_l0_reverse"],
-                                       "bias": p["bias_ih_l0_reverse"]}, x),
+    hf, out_f = _gru_direction(_projection(p, x, ""), p["weight_hh_l0"],
+                               p["bias_hh_l0"], h0[:, 0], False)
+    hb, out_b = _gru_direction(_projection(p, x, "_reverse"),
                                p["weight_hh_l0_reverse"],
                                p["bias_hh_l0_reverse"], h0[:, 1], True)
     return torch.cat([out_f, out_b], dim=-1), torch.stack([hf, hb], dim=1)

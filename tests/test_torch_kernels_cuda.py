@@ -773,3 +773,104 @@ def test_two_gloo_ranks_on_one_card_train_as_one_process(cuda_device,
                                rtol=1e-4)
     for r in ranks:
         assert list(r["__launches__"]) == [8, 8]   # K3, K4: 2 per step
+
+
+def _numpy_tree(params):
+    return {k: _numpy_tree(v) if isinstance(v, dict) else v.numpy()
+            for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq_len", [1000, 230])
+def test_hp_legacy_votes_through_k2_match_the_plain_route(cuda_device,
+                                                          monkeypatch,
+                                                          seq_len):
+    """The legacy chunked-HP vote at full width (48 features, hidden 128,
+    5 classes): at f32 on the card, both biGRU layers of every window
+    launch K2 (19 windows x 2 layers x 2 haplotypes at seq_len 1000; at
+    230 the last window is skipped, 3 windows), and the int votes are within
+    +-2 of the plain step loop's on the CPU (two windows cover an interior
+    position and each truncation can move by one). In bf16 every launch
+    runs K2 `mma`, and each is held against K2's plain version on the
+    inputs it had, at the bf16 bound of the kernel tests (2e-2)."""
+    import numpy as np
+
+    from pepper_tpu_torch.models import polish_model
+    from pepper_tpu_torch.models.polish_model import init_polish_params
+    from pepper_tpu_torch.pipelines.hp_legacy import make_hp_window_vote_fn
+
+    tree = _numpy_tree(init_polish_params(torch.Generator().manual_seed(7),
+                                          image_features=48, hidden=128,
+                                          num_classes=5))
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 60, (2, 16, seq_len, 48))
+    x[rng.random(x.shape) < 0.6] = 0
+    x1, x2 = (torch.from_numpy(a.astype(np.uint8)) for a in x)
+    windows = (seq_len - 100) // 50 + 1
+    kw = dict(num_classes=5, seq_len=seq_len, hidden_size=128)
+    want = make_hp_window_vote_fn(tree, device="cpu", fused_rnn=False,
+                                  **kw)(x1, x2)
+    layer, calls = polish_model.fused_bigru, []
+
+    def recorded(params, x, h0):
+        result = layer(params, x, h0)
+        calls.append((params, x, h0, result))
+        return result
+
+    monkeypatch.setattr(polish_model, "fused_bigru", recorded)
+    for precision in ("f32", "bf16"):
+        monkeypatch.setenv("PEPPER_TPU_PRECISION", precision)
+        fn = make_hp_window_vote_fn(tree, device="cuda", **kw)
+        before, mma_before = fg.launches, fg.kernel_launches["mma"]
+        calls.clear()
+        got = fn(x1, x2)
+        torch.cuda.synchronize()
+        assert fg.launches == before + 4 * windows == before + len(calls)
+        for g, w in zip(got, want):
+            g = g.cpu()
+            assert g.dtype == torch.int32 and g.shape == w.shape
+            covered = g[:, :(windows - 1) * 50 + 100].sum(-1)
+            assert (covered >= 9990).all() and (covered <= 20000).all()
+            if precision == "f32":
+                assert (g - w).abs().max().item() <= 2
+        if precision == "bf16":
+            assert fg.kernel_launches["mma"] == mma_before + 4 * windows
+            with torch.inference_mode():
+                for params, x, h0, (out, h_n) in calls:
+                    assert x.dtype == torch.bfloat16
+                    plain = _gru_plain(params,
+                                       *fg.input_projections(params, x), h0)
+                    for a, b in zip((out, h_n), plain):
+                        err = (a.float() - b.float()).abs().max().item()
+                        assert err <= 2e-2, err
+
+
+@pytest.mark.cuda
+def test_alternate_models_on_the_card_match_the_cpu(cuda_device,
+                                                    monkeypatch):
+    """The transformer (F=26, window 33, 6 layers, d=104) and the no-CNN
+    biLSTM (hidden 128, a random carried state) at full width in f32 on the
+    card against the CPU (TF32 off): probabilities within 1e-4."""
+    from pepper_tpu_torch.models import variant_no_cnn as no_cnn
+    from pepper_tpu_torch.models import variant_transformer as tf
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    g = torch.Generator().manual_seed(9)
+    x = torch.randint(-125, 126, (64, 33, 26), generator=g).float()
+    h = torch.randn(64, 2, 128, generator=g)
+    c = torch.randn(64, 2, 128, generator=g)
+    cases = [(tf.init_transformer_params(g), tf.transformer_forward, (x,)),
+             (no_cnn.init_no_cnn_params(g), no_cnn.no_cnn_forward,
+              (x, h, c))]
+    for params, forward, args in cases:
+        want = forward(params, *args)
+        got = forward(_to(params, cuda_device),
+                      *(a.to(cuda_device) for a in args))
+        assert got.shape == want.shape == (64, 3)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
