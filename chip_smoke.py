@@ -105,7 +105,21 @@ at once, into the git-ignored build/ directory, then:
      in-memory records: the f32 votes within +-2 of the CPU's and the same
      candidates called; prints ms per batch, K2's share of it, and the
      bf16 vote and candidate differences;
- 19. prints one JSON line describing every ported kernel.
+ 19. runs the scale rehearsal (pepper_tpu_torch/utils/scale_rehearsal.py)
+     on the card at 6 Mbp over 3 contigs, coverage 30, 10 kb reads, in
+     bf16 at the 16384-row batch: two uninterrupted streamed call_variant
+     runs, a kill -9 after half of the batches that must exit 9, and a
+     resume that must replay at least one interval and write 5 VCFs
+     byte-identical to the uninterrupted run's; prints its JSON record
+     (with the card's busy time in the stream and the child's resident
+     memory by kind), and checks that K1 was launched twice per batch in
+     the measured run;
+ 20. runs the streamed polish of phase 7's dataset on the card (bf16) in a
+     subprocess, uninterrupted, then killed after half of its sequences
+     (exit 9, journal left), then resumed: the polished FASTA must be
+     byte-identical to the uninterrupted run's, with at least one interval
+     replayed and K2 launched 38 times per batch in each run;
+ 21. prints one JSON line describing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -242,37 +256,6 @@ def _rel_err(got, want) -> float:
     return _max_err(got, want) / max(1.0, want.float().abs().max().item())
 
 
-def numpy_variant_tree(seed: int, features: int = 26, window: int = 33,
-                       hidden: int = H):
-    """Seeded torch-default init (U(+-1/sqrt(fan))) of the classifier (other
-    hidden sizes for kernel edge cases), as numpy arrays with the
-    torch-layout names the checkpoints use."""
-    rng = np.random.default_rng(seed)
-
-    def u(shape, fan):
-        b = 1.0 / np.sqrt(fan)
-        return rng.uniform(-b, b, shape).astype(np.float32)
-
-    def rnn(f):
-        out = {}
-        for sfx in ("", "_reverse"):
-            out["weight_ih_l0" + sfx] = u((4 * hidden, f), hidden)
-            out["weight_hh_l0" + sfx] = u((4 * hidden, hidden), hidden)
-            out["bias_ih_l0" + sfx] = u((4 * hidden,), hidden)
-            out["bias_hh_l0" + sfx] = u((4 * hidden,), hidden)
-        return out
-
-    def lin(i, o):
-        return {"weight": u((o, i), i), "bias": u((o,), i)}
-
-    tree = {"encoder": rnn(features), "decoder": rnn(2 * hidden),
-            "linear_1": lin(2 * hidden * window, 512)}
-    for k in range(2, 6):
-        tree[f"linear_{k}"] = lin(512, 512)
-    tree["output_layer_type"] = lin(512, 3)
-    return tree
-
-
 def images(rng, n: int, window: int = 33, features: int = 26) -> np.ndarray:
     """int8 candidate images: sparse pileup-like counts in [-125, 125]."""
     x = rng.integers(-125, 126, (n, window, features))
@@ -380,11 +363,12 @@ def _layer_args(p):
 
 def phase_kernel(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_lstm as fl
 
     rng = np.random.default_rng(11)
-    tree = numpy_variant_tree(12)
-    hp_tree = numpy_variant_tree(13, features=48, window=21)
+    tree = numpy_variant_params(12)
+    hp_tree = numpy_variant_params(13, image_features=48, window=21)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     timed = {}
@@ -701,9 +685,10 @@ def phase_k2(dev):
 # --------------------------------------------------------------- phase 4
 def phase_model(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
-    from pepper_tpu_torch.models.variant_model import variant_forward
+    from pepper_tpu_torch.models.variant_model import (numpy_variant_params,
+                                                       variant_forward)
 
-    tree = numpy_variant_tree(21)
+    tree = numpy_variant_params(21)
     x8 = torch.from_numpy(images(np.random.default_rng(22), 512))
     with torch.inference_mode():
         want = variant_forward(params_from_jax(tree), x8.float())
@@ -800,6 +785,7 @@ def _call_records(out_dir):
 
 def phase_end_to_end(dev, work_dir, name):
     from pepper_tpu_torch.models.checkpoint import save_checkpoint
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_lstm as fl
     from pepper_tpu_torch.options import PipelineConfig
     from pepper_tpu_torch.pipelines.call_variant import call_variant
@@ -815,7 +801,7 @@ def phase_end_to_end(dev, work_dir, name):
     fasta, bam = write_dataset(work_dir, genome, simulate_reads(
         genome, variants, coverage=30, seed=33))
     model = os.path.join(work_dir, "model.npz")
-    save_checkpoint(model, numpy_variant_tree(34), {"epochs": 0})
+    save_checkpoint(model, numpy_variant_params(34), {"epochs": 0})
     print(f"e2e dataset: {genome_len} bp, 140 planted variants, coverage "
           f"30 [{time.time() - t0:.1f}s]", flush=True)
 
@@ -1087,7 +1073,7 @@ def phase_polish_end_to_end(dev, work_dir, name):
           "f32 where the cpu vote margin exceeds 1e-4")
     check(diff_f32 or text_f32 == text_cpu, "cuda f32 and cpu f32 polished "
           "FASTAs differ although every base label agrees")
-    return launches
+    return launches, {"bam": bam, "draft": draft, "model": model}
 
 
 # --------------------------------------------------------------- phase 8
@@ -1189,12 +1175,13 @@ def k4_host_us(pack, gout, gates, cs, out) -> dict:
 def phase_train_kernels(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
     from pepper_tpu_torch.models.rnn import lstm as plain_lstm
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_lstm as fl
 
     rng = np.random.default_rng(71)
-    tree = numpy_variant_tree(72)
-    hp_tree = numpy_variant_tree(73, features=48, window=21)
-    narrow = {Hs: numpy_variant_tree(74 + Hs, window=9, hidden=Hs)
+    tree = numpy_variant_params(72)
+    hp_tree = numpy_variant_params(73, image_features=48, window=21)
+    narrow = {Hs: numpy_variant_params(74 + Hs, window=9, hidden=Hs)
               for Hs in (128, 32)}
     f32, bf16 = torch.float32, torch.bfloat16
     fwd_tol = {bf16: 2e-2, f32: 1e-4}
@@ -1463,9 +1450,10 @@ def _one_step(tree, device, x8, y, lr, weight_decay):
 
 
 def phase_train_step(dev):
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_lstm as fl
 
-    tree = numpy_variant_tree(81)
+    tree = numpy_variant_params(81)
     rng = np.random.default_rng(82)
     x8 = images(rng, TRAIN_BATCH)
     y = rng.integers(0, 3, TRAIN_BATCH)
@@ -1684,6 +1672,7 @@ def _write_dv_vcf(path, records, contigs):
 def phase_hp_end_to_end(dev, work_dir, name):
     from pepper_tpu_torch.io.vcf import read_vcf
     from pepper_tpu_torch.models.checkpoint import save_checkpoint
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_lstm as fl
     from pepper_tpu_torch.options import PipelineConfig
     from pepper_tpu_torch.pipelines.call_variant import call_variant
@@ -1700,8 +1689,8 @@ def phase_hp_end_to_end(dev, work_dir, name):
     fasta, bam = write_dataset(work_dir, genome, simulate_reads(
         genome, variants, coverage=30, seed=113, hp_tags=True))
     model = os.path.join(work_dir, "hp_model.npz")
-    save_checkpoint(model, numpy_variant_tree(114, features=48, window=21),
-                    {"epochs": 0})
+    save_checkpoint(model, numpy_variant_params(114, image_features=48,
+                                                window=21), {"epochs": 0})
     print(f"HP dataset: {genome_len} bp, {len(variants)} planted variants, "
           f"haplotype-tagged reads at coverage 30; classifier 21x48 -> "
           f"biLSTM {H} x2 -> 5x Linear 512 -> 3 [{time.time() - t0:.1f}s]",
@@ -2054,6 +2043,7 @@ def phase_sharded_inference(dev):
     rows they differ at bf16 rounding (within 1e-2, a class changing only
     at a top-two margin that small)."""
     from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_gru as fg
     from pepper_tpu_torch.ops import fused_lstm as fl
     from pepper_tpu_torch.parallel.mesh import data_mesh
@@ -2073,7 +2063,7 @@ def phase_sharded_inference(dev):
         for seed, window, features, rows in (
                 (132, 33, 26, SHARD_ROWS), (133, 21, 48, SHARD_ROWS),
                 (132, 33, 26, 4096)):
-            tree = numpy_variant_tree(seed, features, window)
+            tree = numpy_variant_params(seed, features, window)
             x8 = images(rng, rows, window, features)
             sharded = DeviceRunner(tree, rows, mesh)
             single = DeviceRunner(tree, rows, mesh[:1])
@@ -2657,6 +2647,152 @@ def phase_hp_legacy(dev, name, data):
     return launches
 
 
+# -------------------------------------------------------------- phase 19
+SCALE_MBP, SCALE_CONTIGS = 6, 3   # ~15 batches of 16384: the kill at ~8
+
+
+def phase_scale_rehearsal(work_dir):
+    """The scale rehearsal (pepper_tpu_torch/utils/scale_rehearsal.py) on
+    the card at a reduced depth, in bf16 at the 16384-row batch: two
+    uninterrupted streamed call_variant runs, a kill -9 after half of the
+    batches and a resume whose 5 VCFs must be byte-identical. Returns K1's
+    launches in the measured run (read from its child's stderr)."""
+    out = os.path.join(work_dir, "scale.json")
+    torch.cuda.empty_cache()   # the children share the card with us
+    t = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "pepper_tpu_torch.utils.scale_rehearsal",
+         "--mbp", str(SCALE_MBP), "--contigs", str(SCALE_CONTIGS),
+         "--device", "cuda", "--out", out, "--cache-dir",
+         os.path.join(work_dir, "scale")],
+        cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=600)
+    wall = time.time() - t
+    check(p.returncode == 0 and os.path.isfile(out),
+          f"the scale rehearsal failed (exit {p.returncode}): "
+          + p.stderr[-4000:] + p.stdout[-2000:])
+    with open(out) as fh:
+        rec = json.load(fh)
+    print(json.dumps(rec), flush=True)
+    replayed = int(rec["resume_replayed"].split("/")[0])
+    batches = -(-rec["candidates"] // rec["batch_floor"])
+    print(f"scale rehearsal on the card, {SCALE_MBP} Mbp over "
+          f"{SCALE_CONTIGS} contigs: {rec['candidates']} candidates in "
+          f"{batches} batches of {rec['batch_floor']} ({rec['precision']}); "
+          f"warm run {rec['e2e_wall_s']}s ({rec['mbp_per_s']} Mbp/s), peak "
+          f"RSS {rec['peak_rss_mb']} MB (at thirds {rec['rss_mb_thirds']}), "
+          f"peak device {rec['peak_device_mb']} MB (at thirds "
+          f"{rec['peak_device_mb_thirds']}), device busy "
+          f"{rec['device_busy_s']}s of the {rec['stream_s']}s stream (idle "
+          f"share {rec['device_idle_share']}), K1 launches "
+          f"{rec['k1_launches']}; kill -9 after batch "
+          f"{rec['crash_after_batches']} (exit {rec['crash_exit_code']}), "
+          f"journal {rec['journal_mb_at_crash']} MB, resume replayed "
+          f"{rec['resume_replayed']} intervals in {rec['resume_wall_s']}s, "
+          f"VCFs byte-identical: {rec['resume_byte_identical']}; the "
+          f"phase took {wall:.1f}s", flush=True)
+    check(rec["precision"] == "bf16" and rec["batch_floor"] == SHARD_ROWS,
+          "the rehearsal did not run the card's default bf16 16384-row "
+          "batch")
+    check(rec["crash_exit_code"] == 9 and replayed >= 1,
+          "the killed rehearsal run did not exit 9 or its resume replayed "
+          "no interval")
+    check(rec["resume_byte_identical"], "the resumed VCFs differ from the "
+          f"uninterrupted run's: first difference {rec['first_difference']}")
+    check(rec["k1_launches"] == 2 * batches, f"the rehearsal's measured run "
+          f"launched K1 {rec['k1_launches']} times for {batches} batches "
+          f"(expected 2 each)")
+    check(0 < rec["device_busy_s"] < rec["stream_s"], "the rehearsal's "
+          f"device busy time {rec['device_busy_s']}s is not within its "
+          f"{rec['stream_s']}s stream")
+    return rec["k1_launches"]
+
+
+# -------------------------------------------------------------- phase 20
+_POLISH_DRIVER = """
+import sys
+sys.path.insert(0, {root!r})
+from pepper_tpu_torch.ops import fused_gru
+from pepper_tpu_torch.polish.pipeline import polish
+bam, draft, model, out = sys.argv[1:5]
+polish(bam, draft, model, out, threads=4, batch_size={batch},
+       realignment=True, device="cuda")
+sys.stderr.write("K2 LAUNCHES: %d\\n" % fused_gru.launches)
+"""
+
+
+def phase_polish_resume(work_dir, data):
+    """The streamed polish of phase 7's dataset on the card (bf16) in a
+    subprocess: uninterrupted, then killed (os._exit(9)) after about half
+    of its sequences are flushed, then resumed on the same output
+    directory; the resumed FASTA must be byte-identical to the
+    uninterrupted one. Returns K2's launches [uninterrupted, resumed]."""
+    torch.cuda.empty_cache()
+
+    def run(out, crash_after=0):
+        env = _env()
+        if crash_after:
+            env["PEPPER_TPU_TEST_CRASH_AFTER_POLISH_FLUSH"] = str(crash_after)
+        t = time.time()
+        p = subprocess.run(
+            [sys.executable, "-c", _POLISH_DRIVER.format(
+                root=ROOT, batch=POLISH_BATCH), data["bam"], data["draft"],
+             data["model"], out], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        return p, time.time() - t
+
+    def launches(p):
+        m = [ln for ln in p.stderr.splitlines() if ln.startswith("K2 LAUN")]
+        return int(m[-1].split()[-1]) if m else 0
+
+    ref_out = os.path.join(work_dir, "polish_ref") + "/"
+    p, wall = run(ref_out)
+    check(p.returncode == 0, "the uninterrupted polish run failed: "
+          + p.stderr[-3000:])
+    n_seqs = int(p.stderr.split("STREAMED PILEUP+CONSENSUS: ")[1].split()[0])
+    ref_launches = launches(p)
+    with open(ref_out + "PEPPER_pepper_polished.fa", "rb") as fh:
+        ref = fh.read()
+    n_batches = -(-n_seqs // POLISH_BATCH)
+    check(ref_launches == 38 * n_batches, f"the uninterrupted polish "
+          f"launched K2 {ref_launches} times for {n_batches} batches "
+          "(expected 38 each)")
+
+    out = os.path.join(work_dir, "polish_crash") + "/"
+    crash_after = n_seqs // 2
+    p, _ = run(out, crash_after)
+    journal = out + "pepper_polish_resume.journal"
+    check(p.returncode == 9 and os.path.isfile(journal),
+          f"the polish run killed after {crash_after} sequences exited "
+          f"{p.returncode} (expected 9) or left no journal: "
+          + p.stderr[-3000:])
+    journal_mb = os.path.getsize(journal) / 1e6
+    p, resume_wall = run(out)
+    check(p.returncode == 0, "the resumed polish run failed: "
+          + p.stderr[-3000:])
+    replayed = p.stderr.split("RESUME: ")[1].split()[0] \
+        if "RESUME: " in p.stderr else "0/0"
+    resume_launches = launches(p)
+    with open(out + "PEPPER_pepper_polished.fa", "rb") as fh:
+        got = fh.read()
+    print(f"polish kill -9 and resume on the card (bf16): {n_seqs} "
+          f"sequences in {n_batches} batches, uninterrupted {wall:.2f}s "
+          f"with {ref_launches} K2 launches; killed after {crash_after} "
+          f"sequences (exit 9), journal {journal_mb:.3f} MB; the resume "
+          f"replayed {replayed} intervals in {resume_wall:.2f}s with "
+          f"{resume_launches} K2 launches; FASTA byte-identical: "
+          f"{got == ref}", flush=True)
+    check(int(replayed.split("/")[0]) >= 1, "the resumed polish replayed "
+          "no interval from the journal")
+    check(0 < resume_launches <= ref_launches
+          and resume_launches % 38 == 0, f"the resumed polish launched K2 "
+          f"{resume_launches} times (expected 38 per batch it ran)")
+    check(not os.path.isfile(journal), "the resumed polish left its "
+          "journal behind")
+    check(got == ref, "the resumed polished FASTA differs from the "
+          "uninterrupted card run's")
+    return [ref_launches, resume_launches]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2687,7 +2823,7 @@ def main() -> int:
     try:
         k1["launches"], variant_run = phase_end_to_end(
             dev, os.path.join(work_dir, "variant"), env["card"])
-        k2["launches"] = phase_polish_end_to_end(
+        k2["launches"], polish_data = phase_polish_end_to_end(
             dev, os.path.join(work_dir, "polish"), env["card"])
         k1["launches_trainer_evals"], k3["launches"], k4["launches"] = \
             phase_trainer(dev, os.path.join(work_dir, "train"), env["card"])
@@ -2704,6 +2840,9 @@ def main() -> int:
         phase_dryrun(dev)
         phase_alternates(dev, env["card"])
         k2["launches_hp_legacy"] = phase_hp_legacy(dev, env["card"], hp_data)
+        k1["launches_scale"] = phase_scale_rehearsal(work_dir)
+        k2["launches_polish_resume"] = phase_polish_resume(work_dir,
+                                                           polish_data)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

@@ -7,6 +7,8 @@ import struct
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
+import numpy as np
+
 CIGAR_OPS = "MIDNSHP=X"
 OP_M, OP_I, OP_D, OP_N, OP_S, OP_H, OP_P, OP_EQ, OP_X = range(9)
 CONSUMES_QUERY = {OP_M, OP_I, OP_S, OP_EQ, OP_X}
@@ -14,6 +16,9 @@ CONSUMES_REF = {OP_M, OP_D, OP_N, OP_EQ, OP_X}
 
 SEQ_NT16 = "=ACMGRSVTWYHKDBN"
 NT16_CODE = {c: i for i, c in enumerate(SEQ_NT16)}
+# byte -> 4-bit code; any other character is N (15)
+_NT16_TABLE = np.full(256, 15, np.uint8)
+_NT16_TABLE[np.frombuffer(SEQ_NT16.encode(), np.uint8)] = np.arange(16)
 
 FLAG_PAIRED = 1
 FLAG_PROPER_PAIR = 2
@@ -82,14 +87,11 @@ def encode_cigar(cigar: List[Tuple[int, int]]) -> bytes:
 
 
 def encode_seq(seq: str) -> bytes:
-    out = bytearray((len(seq) + 1) // 2)
-    for i, base in enumerate(seq.upper()):
-        code = NT16_CODE.get(base, 15)
-        if i % 2 == 0:
-            out[i // 2] = code << 4
-        else:
-            out[i // 2] |= code
-    return bytes(out)
+    codes = _NT16_TABLE[np.frombuffer(
+        seq.upper().encode("ascii", "replace"), np.uint8)]
+    if len(codes) % 2:
+        codes = np.append(codes, np.uint8(0))
+    return ((codes[0::2] << 4) | codes[1::2]).tobytes()
 
 
 def encode_aux(tags: List[Tuple[str, str, object]]) -> bytes:
@@ -123,7 +125,12 @@ def encode_record(rec: SamRecord) -> bytes:
     name = rec.query_name.encode() + b"\0"
     cig = encode_cigar(rec.cigar)
     seq = encode_seq(rec.seq)
-    qual = bytes(min(q, 0xFF) for q in rec.qual) if rec.qual else b"\xff" * len(rec.seq)
+    if not rec.qual:
+        qual = b"\xff" * len(rec.seq)
+    elif max(rec.qual) <= 0xFF:
+        qual = bytes(rec.qual)
+    else:
+        qual = bytes(min(q, 0xFF) for q in rec.qual)
     aux = encode_aux(rec.tags)
     bin_ = reg2bin(rec.pos, max(rec.reference_end(), rec.pos + 1))
     body = struct.pack(

@@ -19,6 +19,7 @@ returned.
 """
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -45,6 +46,39 @@ def init_variant_params(gen: torch.Generator,
         "linear_5": init_linear_params(gen, 512, 512),
         "output_layer_type": init_linear_params(gen, 512, num_classes_type),
     }
+
+
+def numpy_variant_params(seed: int,
+                         image_features: int = ImageOptions.IMAGE_HEIGHT,
+                         window: int = ImageOptions.CANDIDATE_WINDOW_SIZE + 1,
+                         hidden: int = 256) -> Params:
+    """The classifier's torch-default init (U(+-1/sqrt(fan))) drawn from a
+    numpy seed: float32 numpy arrays with the checkpoint's torch-layout
+    names, the same on every machine and in both packages' loaders."""
+    rng = np.random.default_rng(seed)
+
+    def u(shape, fan):
+        b = 1.0 / np.sqrt(fan)
+        return rng.uniform(-b, b, shape).astype(np.float32)
+
+    def rnn(f):
+        out = {}
+        for sfx in ("", "_reverse"):
+            out["weight_ih_l0" + sfx] = u((4 * hidden, f), hidden)
+            out["weight_hh_l0" + sfx] = u((4 * hidden, hidden), hidden)
+            out["bias_ih_l0" + sfx] = u((4 * hidden,), hidden)
+            out["bias_hh_l0" + sfx] = u((4 * hidden,), hidden)
+        return out
+
+    def lin(i, o):
+        return {"weight": u((o, i), i), "bias": u((o,), i)}
+
+    tree = {"encoder": rnn(image_features), "decoder": rnn(2 * hidden),
+            "linear_1": lin(2 * hidden * window, 512)}
+    for k in range(2, 6):
+        tree[f"linear_{k}"] = lin(512, 512)
+    tree["output_layer_type"] = lin(512, ImageOptions.TOTAL_TYPE_LABELS)
+    return tree
 
 
 def _dropout(x: torch.Tensor, rate: float, gen: torch.Generator,

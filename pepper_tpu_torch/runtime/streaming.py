@@ -60,16 +60,26 @@ class _PendingBatch:
     """One in-flight batch: its own pinned output buffer, filled by
     asynchronous D2H copies that the events in `done` mark complete (one
     per replica that wrote a slice of it). np.asarray() waits for them (on
-    the flusher thread) and returns the probabilities."""
+    the flusher thread), adds the replicas' device spans (each from its
+    timing event in `started`, recorded before the H2D copy, to its event
+    in `done`) to the stream's "(device)" seconds, and returns the
+    probabilities."""
 
-    def __init__(self, host_out: torch.Tensor, done, host_in: torch.Tensor):
+    def __init__(self, host_out: torch.Tensor, done, host_in: torch.Tensor,
+                 started=()):
         self._host_out = host_out
         self._done = done
         self._host_in = host_in   # pinned input: held until the batch is done
+        self._started = started
 
     def __array__(self, dtype=None, copy=None):
         for event in self._done:
             event.synchronize()
+        if self._started:
+            streamstats.CURRENT.add("(device)", sum(
+                a.elapsed_time(b) for a, b in zip(self._started, self._done))
+                / 1e3)
+            self._started = None
         out = self._host_out.numpy()
         return out if dtype is None else out.astype(dtype)
 
@@ -150,12 +160,17 @@ class DeviceRunner:
         def run(r: int, block: torch.Tensor) -> torch.cuda.Event:
             host_out[r * rows:(r + 1) * rows].copy_(self._forward(r, block),
                                                     non_blocking=True)
-            event = torch.cuda.Event()
+            event = torch.cuda.Event(enable_timing=True)
             event.record()
             return event
 
+        started = []
+        for stream in self._streams:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record(stream)
+            started.append(event)
         done = run_replicas(self.mesh, self._streams, run, host_in)
-        return _PendingBatch(host_out, done, host_in)
+        return _PendingBatch(host_out, done, host_in, started)
 
 
 _runner_cache: dict = {}
@@ -175,6 +190,18 @@ def get_device_runner(model_path: str, batch_size: int,
         _runner_cache[key] = DeviceRunner(_load_model_params(model_path),
                                           batch_size, device)
     return _runner_cache[key]
+
+
+def stream_batch_rows(batch_size: int, device: torch.device) -> int:
+    """Rows of the streamed runner's fixed batch: `batch_size` or the floor,
+    whichever is larger. Big fixed batches mean fewer launches, transfers
+    and syncs per candidate: 16384 on CUDA; on the CPU the f32 forward's
+    workspace scales with the batch (xp alone is 0.5 GB per direction at
+    4096), so 4096 there. PEPPER_TPU_MIN_DEVICE_BATCH overrides the floor
+    (tests that need several flushes on tiny data)."""
+    default_floor = "4096" if device.type == "cpu" else "16384"
+    return max(batch_size, int(os.environ.get("PEPPER_TPU_MIN_DEVICE_BATCH",
+                                              default_floor)))
 
 
 class _MetaBuffer:
@@ -330,16 +357,10 @@ def stream_inference(config: PipelineConfig, intervals,
                                 config.model_path, inputs)
 
     stats = streamstats.reset()   # per-component accounting for this run
-    # big fixed batches: fewer launches/transfers/syncs per candidate
-    # (floor overridable for tests that need several flushes on tiny data).
-    # 16k on CUDA; on the CPU the f32 forward's workspace scales with the
-    # batch (xp alone is 0.5 GB per direction at 4k) — keep 4k there.
     device = resolve_device(config.device)
-    default_floor = "4096" if device.type == "cpu" else "16384"
-    batch_floor = int(os.environ.get("PEPPER_TPU_MIN_DEVICE_BATCH",
-                                     default_floor))
     runner = get_device_runner(config.model_path,
-                               max(config.batch_size, batch_floor), device)
+                               stream_batch_rows(config.batch_size, device),
+                               device)
     n_threads = max(1, config.threads)
     work: "queue.Queue" = queue.Queue()
     for item in enumerate(intervals):

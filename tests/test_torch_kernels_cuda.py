@@ -5,6 +5,8 @@ the JAX package, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_cuda.py
 """
+import os
+
 import pytest
 import torch
 
@@ -874,3 +876,103 @@ def test_alternate_models_on_the_card_match_the_cpu(cuda_device,
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.cuda
+def test_scale_rehearsal_resumes_byte_identical_on_the_card(cuda_device,
+                                                            tmp_path):
+    """The scale rehearsal at 1 Mbp over 2 contigs on cuda:0 in bf16 at the
+    16384-row batch: the run killed after half of the batches exits 9, the
+    resume replays at least one interval and writes the uninterrupted run's
+    5 VCFs byte for byte, and K1 launches twice per batch."""
+    import json
+    import subprocess
+    import sys
+
+    out = str(tmp_path / "record.json")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PEPPER_TPU_MIN_DEVICE_BATCH",
+                        "PEPPER_TPU_PRECISION")}
+    p = subprocess.run(
+        [sys.executable, "-m", "pepper_tpu_torch.utils.scale_rehearsal",
+         "--mbp", "1", "--contigs", "2", "--device", "cuda:0", "--out", out,
+         "--cache-dir", str(tmp_path)],
+        cwd=_REPO, env=env, capture_output=True, timeout=900)
+    assert p.returncode == 0, p.stderr.decode()[-4000:]
+    with open(out) as fh:
+        rec = json.load(fh)
+    assert rec["precision"] == "bf16" and rec["batch_floor"] == 16384
+    assert rec["crash_exit_code"] == 9
+    assert int(rec["resume_replayed"].split("/")[0]) >= 1
+    assert rec["resume_byte_identical"] is True, rec["first_difference"]
+    assert rec["k1_launches"] == 2 * -(-rec["candidates"] // 16384)
+    assert 0 < rec["peak_device_mb"] < 80_000
+    assert 0 < rec["device_busy_s"] < rec["stream_s"]
+    assert 0 < rec["device_idle_share"] < 1
+    end = rec["rss_parts_mb"]["end"]
+    assert 0 < end["pinned_host_mb"] <= end["pinned_host_peak_mb"]
+
+
+_POLISH_DRIVER = """
+import sys
+sys.path.insert(0, {repo!r})
+from pepper_tpu_torch.polish.pipeline import polish
+bam, draft, model, out = sys.argv[1:5]
+polish(bam, draft, model, out, threads=2, realignment=False, device="cuda")
+"""
+
+
+@pytest.mark.cuda
+def test_polish_kill9_resume_byte_identical_on_the_card(cuda_device,
+                                                        tmp_path):
+    """The streamed polish through the CUDA ConsensusRunner (K2, bf16):
+    killed after 6 flushed sequences it exits 9 and leaves its journal; the
+    resume replays from it and writes the uninterrupted run's FASTA byte
+    for byte."""
+    import subprocess
+    import sys
+
+    from pepper_tpu_torch.models.checkpoint import save_checkpoint
+    from pepper_tpu_torch.models.polish_model import init_polish_params
+    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
+                                              simulate_reads_fast,
+                                              write_dataset)
+
+    genome = random_genome(8000, seed=81, n_contigs=4)
+    edits = plant_variants(dict(genome), 8, 2, 2, seed=82)
+    edits = [type(v)(v.contig, v.pos, v.ref, v.alt, (1, 1)) for v in edits]
+    draft, bam = write_dataset(str(tmp_path), genome, simulate_reads_fast(
+        genome, edits, coverage=25, read_length=1500, error_rate=0.03,
+        seed=83))
+    model = str(tmp_path / "polish_model.npz")
+    save_checkpoint(model, init_polish_params(
+        torch.Generator().manual_seed(4)), {})
+
+    def run(out, crash_after=0):
+        env = {k: v for k, v in os.environ.items()
+               if k != "PEPPER_TPU_PRECISION"}
+        if crash_after:
+            env["PEPPER_TPU_TEST_CRASH_AFTER_POLISH_FLUSH"] = str(crash_after)
+        return subprocess.run(
+            [sys.executable, "-c", _POLISH_DRIVER.format(repo=_REPO), bam,
+             draft, model, out], env=env, capture_output=True, timeout=600)
+
+    ref_out = str(tmp_path / "ref_out") + "/"
+    p = run(ref_out)
+    assert p.returncode == 0, p.stderr.decode()[-3000:]
+    with open(ref_out + "PEPPER_pepper_polished.fa", "rb") as fh:
+        ref = fh.read()
+    assert ref
+    out = str(tmp_path / "crash_out") + "/"
+    p = run(out, crash_after=6)
+    assert p.returncode == 9, (p.returncode, p.stderr.decode()[-2000:])
+    assert os.path.isfile(out + "pepper_polish_resume.journal")
+    p = run(out)
+    assert p.returncode == 0, p.stderr.decode()[-3000:]
+    assert "REPLAYED FROM JOURNAL" in p.stderr.decode()
+    with open(out + "PEPPER_pepper_polished.fa", "rb") as fh:
+        assert fh.read() == ref
+    assert not os.path.isfile(out + "pepper_polish_resume.journal")
