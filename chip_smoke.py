@@ -119,7 +119,17 @@ at once, into the git-ignored build/ directory, then:
      (exit 9, journal left), then resumed: the polished FASTA must be
      byte-identical to the uninterrupted run's, with at least one interval
      replayed and K2 launched 38 times per batch in each run;
- 21. prints one JSON line describing every ported kernel.
+ 21. runs the port's bench (pepper_tpu_torch/utils/bench.py) on the card
+     at 1 Mbp with one timed e2e run in a subprocess: it must exit 0 and
+     print its headline, and its launches per stage must be K1 twice per
+     16384-row batch in each device-only and e2e pass, K2 38 times per
+     128-sequence polish batch, K3 and K4 twice per train step; prints its
+     stage lines and the phase's wall time;
+ 22. runs the port's host profiler (utils/profile_stream.py) at 1 Mbp, one
+     run per variant, on phase 21's dataset: it must exit 0 and print its
+     three variants;
+ 23. prints one JSON line describing every ported kernel, with each one's
+     launches in phase 21's bench (launches_bench).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -261,31 +271,6 @@ def images(rng, n: int, window: int = 33, features: int = 26) -> np.ndarray:
     x = rng.integers(-125, 126, (n, window, features))
     x[rng.random(x.shape) < 0.7] = 0
     return x.astype(np.int8)
-
-
-def numpy_polish_tree(seed: int, hidden: int = PH, features: int = 10):
-    """Seeded torch-default init of the polish model (biGRU 10->128, biGRU
-    256->128, Linear 256->5; other hidden sizes for kernel edge cases, 48
-    input features for the legacy chunked-HP vote) as numpy arrays with
-    torch-layout names."""
-    rng = np.random.default_rng(seed)
-
-    def u(shape, fan):
-        b = 1.0 / np.sqrt(fan)
-        return rng.uniform(-b, b, shape).astype(np.float32)
-
-    def rnn(f):
-        out = {}
-        for sfx in ("", "_reverse"):
-            out["weight_ih_l0" + sfx] = u((3 * hidden, f), hidden)
-            out["weight_hh_l0" + sfx] = u((3 * hidden, hidden), hidden)
-            out["bias_ih_l0" + sfx] = u((3 * hidden,), hidden)
-            out["bias_hh_l0" + sfx] = u((3 * hidden,), hidden)
-        return out
-
-    return {"gru_encoder": rnn(features), "gru_decoder": rnn(2 * hidden),
-            "dense1": {"weight": u((5, 2 * hidden), 2 * hidden),
-                       "bias": u((5,), 2 * hidden)}}
 
 
 def polish_images(rng, n: int) -> np.ndarray:
@@ -533,11 +518,12 @@ def k2_bound_ms(B: int, T: int, elem: int, peak_ops: float, H: int = PH):
 
 def phase_k2(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.models.polish_model import numpy_polish_params
     from pepper_tpu_torch.ops import fused_gru as fg
 
     rng = np.random.default_rng(41)
-    tree = numpy_polish_tree(42)
-    small = numpy_polish_tree(43, hidden=64)
+    tree = numpy_polish_params(42)
+    small = numpy_polish_params(43, hidden=64)
     tol = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     timed = {}
@@ -716,11 +702,12 @@ def vote_margins(votes: torch.Tensor) -> torch.Tensor:
 
 def phase_polish_model(dev):
     from pepper_tpu_torch.models.checkpoint import params_from_jax
-    from pepper_tpu_torch.models.polish_model import polish_forward
+    from pepper_tpu_torch.models.polish_model import (numpy_polish_params,
+                                                      polish_forward)
     from pepper_tpu_torch.polish.consensus import (make_window_vote_fn,
                                                    window_votes)
 
-    tree = numpy_polish_tree(51)
+    tree = numpy_polish_params(51)
     rng = np.random.default_rng(52)
     x8 = torch.from_numpy(polish_images(rng, POLISH_BATCH))
     h0 = torch.from_numpy(0.5 * rng.standard_normal(
@@ -913,6 +900,7 @@ def _fasta_contigs(text: str) -> dict:
 def phase_polish_end_to_end(dev, work_dir, name):
     from pepper_tpu_torch.models.checkpoint import (params_from_jax,
                                                     save_checkpoint)
+    from pepper_tpu_torch.models.polish_model import numpy_polish_params
     from pepper_tpu_torch.ops import fused_gru as fg
     from pepper_tpu_torch.polish import consensus, stitch
     from pepper_tpu_torch.polish.pipeline import polish
@@ -929,7 +917,7 @@ def phase_polish_end_to_end(dev, work_dir, name):
     draft, bam = write_dataset(work_dir, genome, simulate_reads_fast(
         genome, edits, coverage=30, read_length=10_000, error_rate=0.02,
         seed=63))
-    tree = numpy_polish_tree(64)
+    tree = numpy_polish_params(64)
     model = os.path.join(work_dir, "polish_model.npz")
     save_checkpoint(model, tree, {"epochs": 0})
     print(f"polish dataset: {n_contigs} contigs x {contig_len} bp draft, "
@@ -1839,6 +1827,7 @@ def phase_polish_trainer(dev, work_dir, name):
     from pepper_tpu_torch.models.checkpoint import (load_checkpoint,
                                                     load_opt_state,
                                                     params_from_jax)
+    from pepper_tpu_torch.models.polish_model import numpy_polish_params
     from pepper_tpu_torch.ops import fused_gru as fg
     from pepper_tpu_torch.train import polish_train as pt
     from pepper_tpu_torch.train import variant_train as vt
@@ -1853,7 +1842,7 @@ def phase_polish_trainer(dev, work_dir, name):
           f"{n} labeled sequences (labels "
           f"{np.bincount(y8.ravel(), minlength=5).tolist()}) "
           f"[{time.time() - t0:.1f}s]", flush=True)
-    tree = numpy_polish_tree(124)
+    tree = numpy_polish_params(124)
     lr, wd = 1e-3, 1e-6
 
     # k=3 window steps at the trainer's batch on the card against the CPU
@@ -2043,6 +2032,7 @@ def phase_sharded_inference(dev):
     rows they differ at bf16 rounding (within 1e-2, a class changing only
     at a top-two margin that small)."""
     from pepper_tpu_torch.models.checkpoint import params_from_jax
+    from pepper_tpu_torch.models.polish_model import numpy_polish_params
     from pepper_tpu_torch.models.variant_model import numpy_variant_params
     from pepper_tpu_torch.ops import fused_gru as fg
     from pepper_tpu_torch.ops import fused_lstm as fl
@@ -2107,7 +2097,7 @@ def phase_sharded_inference(dev):
     finally:
         os.environ.pop("PEPPER_TPU_PRECISION", None)
 
-    tree = numpy_polish_tree(134)
+    tree = numpy_polish_params(134)
     x8 = torch.from_numpy(polish_images(rng, 2 * POLISH_BATCH)).to(dev)
     vote_mesh = make_window_vote_fn(tree, dev, torch.bfloat16, mesh=mesh)
     vote_one = make_window_vote_fn(tree, dev, torch.bfloat16)
@@ -2506,7 +2496,7 @@ def phase_hp_legacy(dev, name, data):
     summaries = [dict(c, contig=contig, region_start=0, region_end=end)
                  for c in chunks]
     n_batches = -(-len(chunks) // batch)
-    tree = numpy_polish_tree(181, features=48)
+    tree = polish_model.numpy_polish_params(181, features=48)
     print(f"legacy HP chain input: {len(reads)} reads, matrix "
           f"{summary.matrix.shape}, {len(chunks)} chunks of 1000 in "
           f"{n_batches} batches of {batch} [{time.time() - t0:.1f}s]",
@@ -2793,6 +2783,100 @@ def phase_polish_resume(work_dir, data):
     return [ref_launches, resume_launches]
 
 
+# -------------------------------------------------------------- phase 21
+BENCH_MBP = 1   # the bench at 1 Mbp: ~40,000 candidates, 3 batches of 16384
+
+
+def _bench_env():
+    return dict(os.environ, PYTHONPATH=ROOT)
+
+
+def phase_bench(work_dir):
+    """The port's bench (pepper_tpu_torch/utils/bench.py) on the card at
+    1 Mbp with one timed e2e run, in a subprocess, as a user runs it: it
+    must exit 0 and print its headline, and its kernel launches per stage
+    must be K1 twice per 16384-row batch in every device-only and e2e pass,
+    K2 38 times per 128-sequence polish batch, and K3 and K4 twice per
+    train step. Returns the launches by kernel."""
+    torch.cuda.empty_cache()   # the child shares the card with us
+    t = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "pepper_tpu_torch.utils.bench", "--mbp",
+         str(BENCH_MBP), "--runs", "1", "--device", "cuda", "--cache-dir",
+         os.path.join(work_dir, "bench")],
+        cwd=ROOT, env=_bench_env(), capture_output=True, text=True,
+        timeout=600)
+    wall = time.time() - t
+    check(p.returncode == 0, f"the bench failed (exit {p.returncode}): "
+          + p.stderr[-4000:] + p.stdout[-2000:])
+    for line in p.stderr.splitlines():
+        if line.startswith("[bench] "):
+            print(line, flush=True)
+    head = json.loads(p.stdout.strip().splitlines()[-1])
+    check(set(head) == {"metric", "value", "unit", "vs_baseline"}
+          and head["metric"] == "variant_e2e_throughput"
+          and head["unit"] == "Mbp/s" and head["value"] > 0,
+          f"the bench's headline is malformed: {head}")
+    tag = "kernel launches per stage: "
+    line = [ln for ln in p.stderr.splitlines() if tag in ln]
+    check(len(line) == 1, "the bench printed no kernel launches line")
+    launches = json.loads(line[0].split(tag)[1])
+    dev_only = launches["device_only"]
+    check(dev_only["batch_rows"] == SHARD_ROWS, "the bench's runner did "
+          f"not run the card's {SHARD_ROWS}-row batch")
+    want = 2 * -(-dev_only["candidates"] // SHARD_ROWS)
+    check(dev_only["K1"] and all(k == want for k in dev_only["K1"]),
+          f"the device-only passes launched K1 {dev_only['K1']} times "
+          f"(expected {want} each)")
+    for r in launches["e2e"]:
+        check(r["K1"] == 2 * -(-r["candidates"] // r["batch_rows"]),
+              f"an e2e pass launched K1 {r['K1']} times for "
+              f"{r['candidates']} candidates")
+    for r in launches["polish"]:
+        check(r["K2"] == 38 * -(-r["sequences"] // r["batch_rows"]),
+              f"a polish pass launched K2 {r['K2']} times for "
+              f"{r['sequences']} sequences")
+    train = launches["train"]
+    check(train["K3"] == train["K4"] == 2 * train["steps"],
+          f"the train steps launched K3 {train['K3']} and K4 {train['K4']} "
+          f"times in {train['steps']} steps (expected 2 each per step)")
+    print(f"bench on the card at {BENCH_MBP} Mbp: headline "
+          f"{json.dumps(head)}; launches {json.dumps(launches)}; the "
+          f"phase took {wall:.1f}s", flush=True)
+    return {"K1": {"device_only": dev_only["K1"],
+                   "e2e": [r["K1"] for r in launches["e2e"]]},
+            "K2": [r["K2"] for r in launches["polish"]],
+            "K3": train["K3"], "K4": train["K4"]}
+
+
+# -------------------------------------------------------------- phase 22
+def phase_profile_stream(work_dir):
+    """The port's host profiler (pepper_tpu_torch/utils/profile_stream.py)
+    on the card's machine at 1 Mbp, one run per variant, on phase 21's
+    dataset: it must exit 0, print its three variants and put the
+    runner's submit back (it exits through its own checks otherwise)."""
+    t = time.time()
+    p = subprocess.run(
+        [sys.executable, "-m", "pepper_tpu_torch.utils.profile_stream",
+         "--mbp", str(BENCH_MBP), "--reps", "1", "--device", "cuda",
+         "--cache-dir", os.path.join(work_dir, "bench")],
+        cwd=ROOT, env=_bench_env(), capture_output=True, text=True,
+        timeout=300)
+    wall = time.time() - t
+    check(p.returncode == 0, f"profile_stream failed (exit "
+          f"{p.returncode}): " + p.stderr[-4000:] + p.stdout[-2000:])
+    out = p.stdout.strip().splitlines()
+    for line in out:
+        print("profile_stream: " + line, flush=True)
+    for name in ("stream only (no stage3)",
+                 "stream + collector (gates, no vcf)",
+                 "stream + collector + ordered vcf"):
+        check(any(line.startswith(name + ": stream=") for line in out),
+              f"profile_stream printed no line for {name!r}")
+    print(f"profile_stream on the card's machine at {BENCH_MBP} Mbp: the "
+          f"phase took {wall:.1f}s", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2843,6 +2927,10 @@ def main() -> int:
         k1["launches_scale"] = phase_scale_rehearsal(work_dir)
         k2["launches_polish_resume"] = phase_polish_resume(work_dir,
                                                            polish_data)
+        bench = phase_bench(work_dir)
+        (k1["launches_bench"], k2["launches_bench"], k3["launches_bench"],
+         k4["launches_bench"]) = (bench[k] for k in ("K1", "K2", "K3", "K4"))
+        phase_profile_stream(work_dir)
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

@@ -14,6 +14,7 @@ models/rnn.py::gru, the differentiable step loop the trainer takes.
 """
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from pepper_tpu_torch.models.rnn import (gru, init_linear_params,
@@ -34,6 +35,34 @@ def init_polish_params(gen: torch.Generator,
         "gru_decoder": init_rnn_params(gen, 2 * hidden, hidden, gates=3),
         "dense1": init_linear_params(gen, 2 * hidden, num_classes),
     }
+
+
+def numpy_polish_params(seed: int,
+                        hidden: int = PolishTrainOptions.HIDDEN_SIZE,
+                        features: int = PolishImageOptions.IMAGE_HEIGHT
+                        ) -> Params:
+    """The polish model's torch-default init (U(+-1/sqrt(fan))) drawn from
+    a numpy seed: biGRU features->hidden, biGRU 2*hidden->hidden, Linear
+    2*hidden->5, as float32 numpy arrays with the checkpoint's torch-layout
+    names, the same on every machine and in both packages' loaders."""
+    rng = np.random.default_rng(seed)
+
+    def u(shape, fan):
+        b = 1.0 / np.sqrt(fan)
+        return rng.uniform(-b, b, shape).astype(np.float32)
+
+    def rnn(f):
+        out = {}
+        for sfx in ("", "_reverse"):
+            out["weight_ih_l0" + sfx] = u((3 * hidden, f), hidden)
+            out["weight_hh_l0" + sfx] = u((3 * hidden, hidden), hidden)
+            out["bias_ih_l0" + sfx] = u((3 * hidden,), hidden)
+            out["bias_hh_l0" + sfx] = u((3 * hidden,), hidden)
+        return out
+
+    return {"gru_encoder": rnn(features), "gru_decoder": rnn(2 * hidden),
+            "dense1": {"weight": u((5, 2 * hidden), 2 * hidden),
+                       "bias": u((5,), 2 * hidden)}}
 
 
 def init_hidden(batch_size: int, hidden: int = PolishTrainOptions.HIDDEN_SIZE,

@@ -129,7 +129,8 @@ def polish_encode_multi_native(
     ref_lens[i] is the per-interval realignment reference length exactly
     as polish_encode_native would pass it. Returns a list of
     (image, positions, indices) or None per interval — bit-identical to
-    per-interval polish_encode_native calls."""
+    per-interval polish_encode_native calls. None means no reads (or no
+    length); a failed allocation raises MemoryError."""
     lib = _lib()
     _bind_multi(lib)
     ref_id = bam._ref_ids[chromosome]
@@ -156,6 +157,12 @@ def polish_encode_multi_native(
         for i in range(n):
             res_ptr = arr_ptr[i]
             if not res_ptr:
+                # the C code leaves NULL only for an interval of no length;
+                # for any other it returns a result (n_reads 0 when empty),
+                # so a NULL there is a failed allocation, not "no reads"
+                if ends[i] - starts[i] + 1 > 0:
+                    raise MemoryError(f"polish_encode_multi failed on "
+                                      f"{chromosome}:{starts[i]}-{ends[i]}")
                 out.append(None)
                 continue
             res = res_ptr.contents

@@ -96,8 +96,12 @@ def stream_polish(bam_file: str, draft_file: str, model_path: str,
     if resume_journal is not None:
         from pepper_tpu_torch.runtime import resume as rj
         inputs = (bam_file, draft_file)
+        # a journal written on another dtype or with the other realignment
+        # flag is not replayed
+        setting = rj.run_setting(runner.dtype, 1,
+                                 realignment_flag=realignment_flag)
         loaded = rj.load_journal(resume_journal, intervals, model_path,
-                                 inputs)
+                                 inputs, setting)
         if loaded is not None:
             totals_j, recs = loaded
             skip = rj.completed_polish_intervals(totals_j, recs)
@@ -106,14 +110,14 @@ def stream_polish(bam_file: str, draft_file: str, model_path: str,
             # drop stale partial records before any new appends (same
             # double-count hazard as the variant journal)
             rj.compact_journal(resume_journal, intervals, model_path,
-                               inputs, skip, replayed)
+                               inputs, skip, replayed, setting)
             if skip:
                 _log(f"RESUME: {len(skip)}/{len(intervals)} INTERVALS "
                      f"REPLAYED FROM JOURNAL")
         elif os.path.isfile(resume_journal):
             os.remove(resume_journal)   # stale/incompatible journal
         journal = rj.ResumeJournal(resume_journal, intervals, model_path,
-                                   inputs)
+                                   inputs, setting)
 
     stats = streamstats.reset()   # per-component accounting for this run
     n_threads = max(1, threads)

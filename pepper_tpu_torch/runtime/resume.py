@@ -12,9 +12,11 @@ corrupting the resume (unlike the HDF5 store, which has no
 crash-consistency story). Deleted on successful completion.
 
 Resume correctness invariants:
-  * The fingerprint covers the interval list, the model, the precision,
-    AND the identity (abspath + size + mtime) of the input BAM/FASTA —
-    a journal written against different inputs is rejected, never
+  * The fingerprint covers the interval list, the model, the run's
+    setting (the runner's effective dtype and mesh size and, for polish,
+    the realignment flag: each changes the predictions), AND the identity
+    (abspath + size + mtime) of the input BAM/FASTA — a journal written
+    against different inputs or under another setting is rejected, never
     silently replayed into a fresh VCF.
   * On resume the journal is COMPACTED before any new appends: it is
     atomically rewritten to hold only the completed intervals' totals
@@ -44,14 +46,25 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 
+def run_setting(dtype, mesh_size: int, **flags) -> Tuple[str, ...]:
+    """The part of a run's setting that changes its predictions, for the
+    fingerprint: the runner's effective dtype (bf16 only on a card), its
+    mesh size (a batch split over N replicas can round otherwise in bf16)
+    and any pipeline flag (polish: realignment_flag)."""
+    return ((f"dtype={dtype}", f"mesh={mesh_size}")
+            + tuple(f"{k}={v}" for k, v in sorted(flags.items())))
+
+
 def _fingerprint(intervals, model_path: str,
-                 inputs: Sequence[str] = ()) -> bytes:
+                 inputs: Sequence[str] = (),
+                 setting: Sequence[str] = ()) -> bytes:
     import hashlib
     h = hashlib.md5()
     for contig, start, end in intervals:
         h.update(f"{contig}:{start}-{end};".encode())
     h.update(os.path.abspath(model_path or "").encode())
-    h.update(os.environ.get("PEPPER_TPU_PRECISION", "bf16").encode())
+    for item in setting:
+        h.update(f"{item};".encode())
     for path in inputs:
         # identity, not content: abspath + size + mtime is cheap and
         # catches re-basecalled/re-aligned/replaced inputs (VERDICT r4)
@@ -215,7 +228,7 @@ class ResumeJournal:
     MAGIC = b"PTRJ2"
 
     def __init__(self, path: str, intervals, model_path: str,
-                 inputs: Sequence[str] = ()):
+                 inputs: Sequence[str] = (), setting: Sequence[str] = ()):
         self.path = path
         self._lock = threading.Lock()   # flusher + main loop both append
         # truncate to the last VALID record first: appending after a torn
@@ -226,7 +239,7 @@ class ResumeJournal:
         self._fh.seek(valid_end)
         if valid_end == 0:
             self._raw(self.MAGIC + _fingerprint(intervals, model_path,
-                                                inputs))
+                                                inputs, setting))
 
     def _raw(self, payload: bytes) -> None:
         crc = zlib.crc32(payload)
@@ -284,15 +297,17 @@ def _valid_length(path: str) -> int:
 
 
 def load_journal(path: str, intervals, model_path: str,
-                 inputs: Sequence[str] = ()
+                 inputs: Sequence[str] = (), setting: Sequence[str] = ()
                  ) -> Optional[Tuple[Dict[int, int], List[tuple]]]:
     """Replay a journal. Returns (interval totals, tagged data records)
     or None when absent / unreadable / written for different intervals,
-    model, or input files (the fingerprint covers BAM/FASTA identity)."""
+    model, input files (the fingerprint covers BAM/FASTA identity) or
+    setting (`run_setting`)."""
     if not os.path.isfile(path):
         return None
     raws = _read_records(path)
-    want = ResumeJournal.MAGIC + _fingerprint(intervals, model_path, inputs)
+    want = ResumeJournal.MAGIC + _fingerprint(intervals, model_path, inputs,
+                                              setting)
     if not raws or raws[0] != want:
         return None
     totals: Dict[int, int] = {}
@@ -311,7 +326,8 @@ def load_journal(path: str, intervals, model_path: str,
 
 def compact_journal(path: str, intervals, model_path: str,
                     inputs: Sequence[str], completed: Dict[int, int],
-                    records: List[tuple]) -> None:
+                    records: List[tuple], setting: Sequence[str] = ()
+                    ) -> None:
     """Atomically rewrite the journal to hold ONLY the completed
     intervals' totals + their (already replay-filtered) batch rows.
 
@@ -327,7 +343,8 @@ def compact_journal(path: str, intervals, model_path: str,
         fh.write(struct.pack("<II", len(payload), zlib.crc32(payload)))
         fh.write(payload)
 
-    raw(ResumeJournal.MAGIC + _fingerprint(intervals, model_path, inputs))
+    raw(ResumeJournal.MAGIC + _fingerprint(intervals, model_path, inputs,
+                                           setting))
     for idx in sorted(completed):
         raw(_encode_record(("total", idx, completed[idx])))
     for rec in records:   # full tagged tuples ("batch", ...) / ("pseq", ...)

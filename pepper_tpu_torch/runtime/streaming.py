@@ -328,16 +328,23 @@ def stream_inference(config: PipelineConfig, intervals,
     from pepper_tpu_torch.io.fasta import FastaReader
     from pepper_tpu_torch.pipelines.make_images import create_region_summary
 
+    device = resolve_device(config.device)
+    runner = get_device_runner(config.model_path,
+                               stream_batch_rows(config.batch_size, device),
+                               device)
     journal = None
     replayed: list = []
     skip: dict = {}
     if resume_journal is not None:
         from pepper_tpu_torch.runtime.resume import (ResumeJournal, compact_journal,
                                                completed_intervals,
-                                               load_journal, replay_slices)
+                                               load_journal, replay_slices,
+                                               run_setting)
         inputs = (config.bam, config.fasta)
+        # a journal written on another dtype or mesh is not replayed
+        setting = run_setting(runner.dtype, len(runner.mesh))
         loaded = load_journal(resume_journal, intervals, config.model_path,
-                              inputs)
+                              inputs, setting)
         if loaded is not None:
             totals, batches = loaded
             skip = completed_intervals(totals, batches)
@@ -347,20 +354,17 @@ def stream_inference(config: PipelineConfig, intervals,
             # double-count toward its total on the next resume
             compact_journal(resume_journal, intervals, config.model_path,
                             inputs, skip,
-                            [("batch",) + tuple(r) for r in replayed])
+                            [("batch",) + tuple(r) for r in replayed],
+                            setting)
             if skip:
                 _log(f"RESUME: {len(skip)}/{len(intervals)} INTERVALS "
                      f"REPLAYED FROM JOURNAL")
         elif os.path.isfile(resume_journal):
             os.remove(resume_journal)   # stale/incompatible journal
         journal = ResumeJournal(resume_journal, intervals,
-                                config.model_path, inputs)
+                                config.model_path, inputs, setting)
 
     stats = streamstats.reset()   # per-component accounting for this run
-    device = resolve_device(config.device)
-    runner = get_device_runner(config.model_path,
-                               stream_batch_rows(config.batch_size, device),
-                               device)
     n_threads = max(1, config.threads)
     work: "queue.Queue" = queue.Queue()
     for item in enumerate(intervals):

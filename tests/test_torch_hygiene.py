@@ -36,9 +36,11 @@ def test_importing_every_module_loads_no_jax():
         "           'pepper_tpu_torch.pipelines.candidate_finder_legacy',\n"
         "           'pepper_tpu_torch.encode.diploid_pileup',\n"
         "           'pepper_tpu_torch.utils.acceptance',\n"
+        "           'pepper_tpu_torch.utils.bench',\n"
+        "           'pepper_tpu_torch.utils.profile_stream',\n"
         "           'pepper_tpu_torch.utils.train_image_index'} - set(mods)\n"
         "print(len(mods), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(mods) < 82 else 0)\n")
+        "sys.exit(1 if bad or missing or len(mods) < 85 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
