@@ -128,8 +128,36 @@ at once, into the git-ignored build/ directory, then:
  22. runs the port's host profiler (utils/profile_stream.py) at 1 Mbp, one
      run per variant, on phase 21's dataset: it must exit 0 and print its
      three variants;
- 23. prints one JSON line describing every ported kernel, with each one's
-     launches in phase 21's bench (launches_bench).
+ 23. trains the full-width classifier with the port's train_loop on the
+     card (batch 64, lr 3e-4) on labeled images of a 1 Mbp dataset at the
+     bench's read settings (seeds 41/42/43, a tenth held out), in rounds
+     of 100 steps that resume with their optimizer state until the
+     held-out accuracy has not risen for two rounds (at least 300 steps),
+     checking K3 and K4 twice per step and K1 in every eval; then calls
+     variants through the port's call_variant CLI with the best checkpoint
+     on phase 21's 1 Mbp dataset on the card (bf16, f32) and the CPU
+     (f32), and once with the bench's random weights: planted-SNP recall
+     >= 0.6 in both dtypes (tests/test_e2e_model.py's bar), K1 twice per
+     16384-row batch in every card run, CUDA f32 calling the CPU's
+     (contig, pos, ref, alt, GT) set, and bf16 against f32 at most 0.5%
+     of the records differing, none gained or lost, SNP and INDEL F1
+     within 0.01; prints SNP and INDEL precision, recall and F1
+     (utils/acceptance.py::evaluate on the contig), the record diffs,
+     and each run's candidates, records, PASS records and the stream's
+     gates and vcf_emit core-seconds;
+ 24. trains the full-width polish model with train_polish_loop on the card
+     (batch 32, one epoch, lr 1e-3) on a 100 kb draft with 110 planted
+     corrections and a truth-to-draft BAM, then polishes the draft through
+     the port's polish CLI with that checkpoint on the card (bf16, f32)
+     and the CPU (f32): length > 0.95 of the truth's, 21-mer identity >
+     0.95 and >= 70% of the corrections recovered in both dtypes
+     (tests/test_polish.py's bars), K2 twice per eval window and 38 times
+     per 128-sequence batch in both card runs, CUDA f32's base labels
+     equal to the CPU's except at a CPU vote margin under 1e-4, and bf16
+     against f32 at most 0.05% of the bases and 0.001 of identity apart;
+ 25. prints one JSON line describing every ported kernel, with each one's
+     launches in phase 21's bench (launches_bench) and on phases 23-24's
+     trained path (launches_trained).
 
 The last line is {"ok": true, "device": {...}}. Any failed phase raises, so
 the run exits non-zero without that line; so does a machine with no CUDA
@@ -897,12 +925,79 @@ def _fasta_contigs(text: str) -> dict:
     return contigs
 
 
+def recorded_polish(run, device):
+    """run() (a streamed polish on `device`, by API or CLI) with the
+    consensus runner's device batches and the stitcher's sequences
+    recorded: (run()'s result, the number of device batches, {sequence key:
+    (positions, indices, base labels, image)}) for the sequences in flush
+    order (batch by batch, the real rows of each; every batch but the last
+    is full)."""
+    from pepper_tpu_torch.polish import consensus, stitch
+
+    batches, seqs = [], []
+    real_submit = consensus.ConsensusRunner.submit
+    real_add = stitch.StreamingStitcher.add
+
+    def counted_submit(self, images):
+        out = real_submit(self, images)
+        batches.append((images, out))
+        return out
+
+    def recorded_add(self, contig, start, end, chunk_id, position, index,
+                     bases):
+        seqs.append(((contig, start, end, chunk_id), np.asarray(position),
+                     np.asarray(index), np.asarray(bases)))
+        return real_add(self, contig, start, end, chunk_id, position, index,
+                        bases)
+
+    consensus.ConsensusRunner.submit = counted_submit
+    stitch.StreamingStitcher.add = recorded_add
+    try:
+        result = run()
+    finally:
+        consensus.ConsensusRunner.submit = real_submit
+        stitch.StreamingStitcher.add = real_add
+    recs = {}
+    for k, (key, pos, idx, bases) in enumerate(seqs):
+        images, labels = batches[k // POLISH_BATCH]
+        if device == "cpu":   # its labels are on the host already
+            check(np.array_equal(labels[k % POLISH_BATCH], bases),
+                  "polish sequences and device batches do not line up")
+        recs[key] = (pos, idx, bases, images[k % POLISH_BATCH])
+    return result, len(batches), recs
+
+
+def polish_label_diffs(rec, rec_cpu, cpu_params=None):
+    """Differing base labels of a recorded polish against the cpu f32 one
+    at the columns that reach the FASTA: (contig, position, insert index,
+    the cpu top-two vote margin there, or NaN without `cpu_params`)."""
+    from pepper_tpu_torch.polish import consensus
+
+    check(rec.keys() == rec_cpu.keys(), "the runs polished different "
+          "sequences")
+    out = []
+    for key, (pos, idx, bases, image) in rec_cpu.items():
+        cols = np.nonzero((rec[key][2] != bases) & (pos >= 0)
+                          & (idx >= 0))[0]
+        if not cols.size:
+            continue
+        margin = np.full(len(bases), np.nan)
+        if cpu_params is not None:
+            with torch.inference_mode():
+                margin = vote_margins(consensus.window_votes(
+                    cpu_params, torch.from_numpy(image[None]).float())
+                )[0].numpy()
+        out += [(key[0], int(pos[c]), int(idx[c]), float(margin[c]))
+                for c in cols]
+    return out
+
+
 def phase_polish_end_to_end(dev, work_dir, name):
     from pepper_tpu_torch.models.checkpoint import (params_from_jax,
                                                     save_checkpoint)
     from pepper_tpu_torch.models.polish_model import numpy_polish_params
     from pepper_tpu_torch.ops import fused_gru as fg
-    from pepper_tpu_torch.polish import consensus, stitch
+    from pepper_tpu_torch.polish import consensus
     from pepper_tpu_torch.polish.pipeline import polish
     from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
                                               simulate_reads_fast,
@@ -925,49 +1020,19 @@ def phase_polish_end_to_end(dev, work_dir, name):
           f"coverage 30 "
           f"[{time.time() - t0:.1f}s]", flush=True)
 
-    # each run's device batches (padded images, in submit order) and the
-    # sequences the stitcher receives (in flush order: batch by batch, the
-    # real rows of each; every batch but the last is full)
-    batches, seqs = [], []
-    real_submit = consensus.ConsensusRunner.submit
-    real_add = stitch.StreamingStitcher.add
-
-    def counted_submit(self, images):
-        out = real_submit(self, images)
-        batches.append((images, out))
-        return out
-
-    def recorded_add(self, contig, start, end, chunk_id, position, index,
-                     bases):
-        seqs.append(((contig, start, end, chunk_id), np.asarray(position),
-                     np.asarray(index), np.asarray(bases)))
-        return real_add(self, contig, start, end, chunk_id, position, index,
-                        bases)
-
-    consensus.ConsensusRunner.submit = counted_submit
-    stitch.StreamingStitcher.add = recorded_add
-
     def run(label, device, precision):
         os.environ["PEPPER_TPU_PRECISION"] = precision
-        batches.clear()
-        seqs.clear()
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t = time.time()
-        fasta = polish(bam, draft, model, os.path.join(work_dir, label),
-                       threads=4, batch_size=POLISH_BATCH, realignment=True,
-                       device=device)
+        fasta, n_batches, recs = recorded_polish(lambda: polish(
+            bam, draft, model, os.path.join(work_dir, label), threads=4,
+            batch_size=POLISH_BATCH, realignment=True, device=device),
+            device)
         wall = time.time() - t
         with open(fasta) as fh:
             text = fh.read()
-        recs = {}
-        for k, (key, pos, idx, bases) in enumerate(seqs):
-            images, labels = batches[k // POLISH_BATCH]
-            if device == "cpu":   # its labels are on the host already
-                check(np.array_equal(labels[k % POLISH_BATCH], bases),
-                      "polish sequences and device batches do not line up")
-            recs[key] = (pos, idx, bases, images[k % POLISH_BATCH])
-        return text, wall, len(batches), recs
+        return text, wall, n_batches, recs
 
     try:
         fg.launches = 0                       # count the main path only
@@ -981,8 +1046,6 @@ def phase_polish_end_to_end(dev, work_dir, name):
         text_cpu, wall_cpu, _, rec_cpu = run("cpu_f32", "cpu", "f32")
         text_f32, wall_f32, _, rec_f32 = run("cuda_f32", "cuda", "f32")
     finally:
-        consensus.ConsensusRunner.submit = real_submit
-        stitch.StreamingStitcher.add = real_add
         os.environ.pop("PEPPER_TPU_PRECISION", None)
 
     # one 128-sequence batch on the card (bf16), its device time by kernel
@@ -994,30 +1057,8 @@ def phase_polish_end_to_end(dev, work_dir, name):
     per_kernel = device_breakdown(lambda: runner.forward(batch))
 
     cpu_params = params_from_jax(tree)
-
-    def label_diffs(rec, margins: bool):
-        """Differing base labels against cpu f32 at the columns that reach
-        the FASTA; with margins, each with its cpu top-two vote margin."""
-        check(rec.keys() == rec_cpu.keys(), "the runs polished different "
-              "sequences")
-        out = []
-        for key, (pos, idx, bases, image) in rec_cpu.items():
-            cols = np.nonzero((rec[key][2] != bases) & (pos >= 0)
-                              & (idx >= 0))[0]
-            if not cols.size:
-                continue
-            margin = np.full(len(bases), np.nan)
-            if margins:
-                with torch.inference_mode():
-                    margin = vote_margins(consensus.window_votes(
-                        cpu_params, torch.from_numpy(image[None]).float())
-                    )[0].numpy()
-            out += [(key[0], int(pos[c]), int(idx[c]), float(margin[c]))
-                    for c in cols]
-        return out
-
-    diff_f32 = label_diffs(rec_f32, margins=True)
-    diff_bf16 = label_diffs(rec_bf16, margins=False)
+    diff_f32 = polish_label_diffs(rec_f32, rec_cpu, cpu_params)
+    diff_bf16 = polish_label_diffs(rec_bf16, rec_cpu)
     mbp = draft_len / 1e6
     print(f"e2e streamed polish on {name}: {len(rec_cpu)} sequences in "
           f"{n_batches} device batches of {POLISH_BATCH}; cuda bf16 wall "
@@ -1483,10 +1524,10 @@ def phase_train_step(dev):
 
 
 # -------------------------------------------------------------- phase 10
-def labeled_images(work_dir):
-    """(int8 images [N,33,26], type labels [N]) of a synthetic dataset with
-    a truth VCF: the native encoder in train mode, region by region, in
-    memory (no HDF5 store)."""
+def encode_labeled(work_dir, fasta, bam, truth):
+    """(int8 images [N,33,26], type labels [N]) of a dataset with a truth
+    VCF: the native encoder in train mode, region by region, in memory (no
+    HDF5 store)."""
     from pepper_tpu_torch.encode.region_encoder import CandidateBatch
     from pepper_tpu_torch.io.bam_reader import BamReader
     from pepper_tpu_torch.io.fasta import FastaReader
@@ -1494,16 +1535,7 @@ def labeled_images(work_dir):
     from pepper_tpu_torch.pipelines.make_images import (build_intervals,
                                                         create_region_summary)
     from pepper_tpu_torch.presets import set_parameters
-    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
-                                              simulate_reads, write_dataset,
-                                              write_truth_vcf)
 
-    genome = random_genome(60_000, seed=91)
-    variants = plant_variants(dict(genome), 500, 80, 80, seed=92)
-    fasta, bam = write_dataset(work_dir, genome, simulate_reads(
-        genome, variants, coverage=30, seed=93, error_rate=0.03))
-    truth = write_truth_vcf(os.path.join(work_dir, "truth.vcf"), genome,
-                            variants)
     config = set_parameters(PipelineConfig(
         bam=bam, fasta=fasta, output_dir=work_dir,
         sub_command="make_train_images", ont_r9_guppy5_sup=True, threads=1,
@@ -1524,7 +1556,23 @@ def labeled_images(work_dir):
                 ys.append(np.array([c.type_label for c in cands]))
     check(bool(xs), "the train-mode encoder produced no labeled image")
     return (np.concatenate(xs).astype(np.int8),
-            np.concatenate(ys).astype(np.int32), len(variants))
+            np.concatenate(ys).astype(np.int32))
+
+
+def labeled_images(work_dir):
+    """(int8 images [N,33,26], type labels [N], planted count) of a
+    synthetic 60 kb dataset with a truth VCF (`encode_labeled`)."""
+    from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
+                                              simulate_reads, write_dataset,
+                                              write_truth_vcf)
+
+    genome = random_genome(60_000, seed=91)
+    variants = plant_variants(dict(genome), 500, 80, 80, seed=92)
+    fasta, bam = write_dataset(work_dir, genome, simulate_reads(
+        genome, variants, coverage=30, seed=93, error_rate=0.03))
+    truth = write_truth_vcf(os.path.join(work_dir, "truth.vcf"), genome,
+                            variants)
+    return encode_labeled(work_dir, fasta, bam, truth) + (len(variants),)
 
 
 def phase_trainer(dev, work_dir, name):
@@ -1762,37 +1810,51 @@ def phase_hp_end_to_end(dev, work_dir, name):
 
 
 # -------------------------------------------------------------- phase 12
-def polish_training_images(work_dir):
-    """(uint8 images [N,1000,10], uint8 labels [N,1000], planted
-    corrections) of a synthetic draft: reads carry the true sequence (the
-    corrections as hom-alt edits of the draft) and a truth-to-draft BAM
-    holds one perfect read per contig; the polish encoder in train mode,
-    interval by interval, in memory (no HDF5 store)."""
-    from pepper_tpu_torch.io.bam_reader import BamReader
+def polish_draft(work_dir, length, seeds, counts):
+    """A synthetic one-contig draft of `length` bp whose reads carry the
+    true sequence (the planted SNPs, insertions and deletions, `counts`, as
+    hom-alt edits of the draft; 10 kb reads at coverage 30, 2% error) and a
+    truth-to-draft BAM with one perfect read: a dict of the genome, the
+    edits and the three paths (as tests/test_polish.py:103-144 builds it).
+    `seeds`: the genome's, the edits' and the reads'."""
     from pepper_tpu_torch.io.bam_writer import BamWriter
-    from pepper_tpu_torch.io.fasta import FastaReader
-    from pepper_tpu_torch.polish.make_images import (build_polish_intervals,
-                                                     create_polish_summary)
     from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
                                               simulate_reads_fast,
                                               write_dataset)
 
-    genome = random_genome(40_000, seed=121)
-    edits = plant_variants(dict(genome), 20, 8, 8, seed=122)
+    genome = random_genome(length, seed=seeds[0])
+    edits = plant_variants(dict(genome), *counts, seed=seeds[1])
     edits = [type(v)(v.contig, v.pos, v.ref, v.alt, (1, 1)) for v in edits]
     draft, bam = write_dataset(work_dir, genome, simulate_reads_fast(
         genome, edits, coverage=30, read_length=10_000, error_rate=0.02,
-        seed=123))
+        seed=seeds[2]))
     truth_bam = os.path.join(work_dir, "truth.bam")
     with BamWriter(truth_bam, [(n, len(s)) for n, s in genome]) as bw:
         for rec in simulate_reads_fast(genome, edits, coverage=1,
                                        read_length=len(genome[0][1]),
                                        error_rate=0.0, seed=1, mapq=60):
             bw.write(rec)
+    return {"genome": genome, "edits": edits, "draft": draft, "bam": bam,
+            "truth_bam": truth_bam}
+
+
+def polish_training_images(work_dir, data=None):
+    """(uint8 images [N,1000,10], uint8 labels [N,1000], planted
+    corrections) of a `polish_draft` (by default phase 12's 40 kb one):
+    the polish encoder in train mode, interval by interval, in memory (no
+    HDF5 store)."""
+    from pepper_tpu_torch.io.bam_reader import BamReader
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.polish.make_images import (build_polish_intervals,
+                                                     create_polish_summary)
+
+    if data is None:
+        data = polish_draft(work_dir, 40_000, (121, 122, 123), (20, 8, 8))
     xs, ys = [], []
-    with BamReader(bam) as reads, FastaReader(draft) as fa, \
-            BamReader(truth_bam) as truth:
-        for contig, start, end in build_polish_intervals(draft, bam, None):
+    with BamReader(data["bam"]) as reads, FastaReader(data["draft"]) as fa, \
+            BamReader(data["truth_bam"]) as truth:
+        for contig, start, end in build_polish_intervals(
+                data["draft"], data["bam"], None):
             images_i, labels_i, _, _ = create_polish_summary(
                 reads, fa, contig, start, end, train_mode=True,
                 truth_bam=truth, realignment_flag=False)
@@ -1800,7 +1862,7 @@ def polish_training_images(work_dir):
             ys += labels_i
     check(bool(xs), "the train-mode polish encoder produced no image")
     return (np.asarray(xs).astype(np.uint8), np.asarray(ys).astype(np.uint8),
-            len(edits))
+            len(data["edits"]))
 
 
 def _polish_window_steps(tree, device, x, y, k, lr, wd):
@@ -2877,6 +2939,352 @@ def phase_profile_stream(work_dir):
           f"phase took {wall:.1f}s", flush=True)
 
 
+# -------------------------------------------------------------- phase 23
+TRAINED_MBP = 1              # the classifier's training set, in Mbp
+TRAINED_SEEDS = (41, 42, 43)  # its genome, variants and reads (the
+                              # calling set is the bench's, seeds 1/2/3)
+TRAINED_ROUND = 100          # train steps between evals
+TRAINED_MIN_STEPS = 300
+TRAINED_MAX_ROUNDS = 10
+TRAINED_PATIENCE = 2         # rounds without a better accuracy that stop it
+TRAINED_LR = 3e-4            # tests/test_e2e_model.py's
+
+
+def planted_snp_recall(records, truth) -> float:
+    """tests/test_e2e_model.py's measure: the share of the truth's SNPs at
+    whose (contig, pos) a PASS record with a non-reference genotype
+    stands."""
+    from pepper_tpu_torch.io.vcf import read_vcf
+
+    called = {(r.contig, r.pos) for r in records
+              if "PASS" in r.filters and r.genotype() != [0, 0]}
+    snps = [(r.contig, r.pos) for r in read_vcf(truth)
+            if len(r.ref) == 1 and all(len(a) == 1 for a in r.alts)]
+    return sum(site in called for site in snps) / max(1, len(snps))
+
+
+def site_diff(a: dict, b: dict):
+    """(sites in one of two {(contig, pos, ref, alts): GT} maps only,
+    shared sites whose GT differs)."""
+    only = len(a.keys() ^ b.keys())
+    flips = sum(a[k] != b[k] for k in a.keys() & b.keys())
+    return only, flips
+
+
+def phase_trained_variant(dev, work_dir, name, bench_root):
+    """The classifier trained by the port's train_loop on the card, then
+    served by the port's call_variant CLI with that checkpoint on the card
+    (bf16, f32) and the CPU (f32), on the bench's 1 Mbp dataset (phase
+    21's, under `bench_root`), scored against its planted truth. Returns
+    K1's launches (evals, each call on the card) and K3's and K4's (train
+    steps)."""
+    from pepper_tpu_torch.cli.pepper_variant_main import main as variant_cli
+    from pepper_tpu_torch.io.fasta import FastaReader
+    from pepper_tpu_torch.io.vcf import read_vcf
+    from pepper_tpu_torch.models.checkpoint import load_checkpoint
+    from pepper_tpu_torch.ops import fused_lstm as fl
+    from pepper_tpu_torch.runtime import streaming
+    from pepper_tpu_torch.train import variant_train as vt
+    from pepper_tpu_torch.train.dataloader import ShuffleBufferLoader
+    from pepper_tpu_torch.utils import bench, streamstats
+    from pepper_tpu_torch.utils.acceptance import evaluate
+
+    t0 = time.time()
+    train_dir = os.path.join(work_dir, "train_set")
+    cache, fasta, bam = bench.get_dataset(train_dir, TRAINED_MBP,
+                                          TRAINED_SEEDS)
+    x8, y = encode_labeled(train_dir, fasta, bam, cache + "/truth.vcf")
+    held = np.random.default_rng(TRAINED_SEEDS[0]).random(len(x8)) < 0.1
+    test = {"images": x8[held], "type_label": y[held]}
+    loader = ShuffleBufferLoader.from_arrays(x8[~held], y[~held],
+                                             TRAIN_BATCH)
+    check(loader.n_examples // TRAIN_BATCH >= TRAINED_ROUND,
+          f"too few labeled images for {TRAINED_ROUND}-step rounds: "
+          f"{loader.n_examples}")
+    print(f"trained-model training set: {TRAINED_MBP} Mbp, seeds "
+          f"{TRAINED_SEEDS}, the bench's reads ({bench.COVERAGE}x, "
+          f"{bench.READ_LEN} bp, error {bench.ERROR}), "
+          f"{bench.planted_counts(TRAINED_MBP)} planted; {len(x8)} labeled "
+          f"images (labels {np.bincount(y, minlength=3).tolist()}), "
+          f"{loader.n_examples} to train, {int(held.sum())} held out "
+          f"[{time.time() - t0:.1f}s]", flush=True)
+
+    # the port's train_loop on the card in rounds of TRAINED_ROUND steps,
+    # each resuming the last with its optimizer state, until the held-out
+    # accuracy has not risen for TRAINED_PATIENCE rounds (and at least
+    # TRAINED_MIN_STEPS steps)
+    fl.launches = fl.train_fwd_launches = fl.train_bwd_launches = 0
+    t = time.time()
+    accuracies, models, last = [], [], None
+    for r in range(TRAINED_MAX_ROUNDS):
+        out = os.path.join(work_dir, f"round_{r}")
+        vt.train_loop(loader, test, out, epoch_limit=1,
+                      step_size=TRAINED_ROUND, lr=TRAINED_LR, seed=r,
+                      device="cuda", retrain_model_path=last)
+        last = os.path.join(out, f"PEPPER_VARIANT_STEP_{TRAINED_ROUND}.npz")
+        accuracies.append(load_checkpoint(last)[1]["accuracy"])
+        models.append(last)
+        best = int(np.argmax(accuracies))
+        if (len(accuracies) * TRAINED_ROUND >= TRAINED_MIN_STEPS
+                and len(accuracies) - 1 - best >= TRAINED_PATIENCE):
+            break
+    train_wall = time.time() - t
+    steps = len(accuracies) * TRAINED_ROUND
+    evals = len(accuracies)
+    eval_batches = -(-len(test["images"]) // 512)
+    k1_evals, k3, k4 = (fl.launches, fl.train_fwd_launches,
+                        fl.train_bwd_launches)
+    check(k3 == k4 == 2 * steps, f"{steps} train steps launched K3 {k3} "
+          f"and K4 {k4} times (expected {2 * steps} each)")
+    check(k1_evals == 2 * eval_batches * evals,
+          f"{evals} evals of {eval_batches} batches launched K1 {k1_evals} "
+          f"times (expected {2 * eval_batches * evals})")
+    model = models[int(np.argmax(accuracies))]
+    print(f"trained-model training on {name}: {steps} steps at batch "
+          f"{TRAIN_BATCH}, lr {TRAINED_LR:g}, in {train_wall:.2f}s wall; "
+          f"held-out accuracy by {TRAINED_ROUND} steps "
+          f"{[round(a, 3) for a in accuracies]}; the best "
+          f"({max(accuracies):.3f}%) serves; K3 {k3}, K4 {k4}, K1 {k1_evals} "
+          f"(evals)", flush=True)
+
+    # the calling set: phase 21's bench dataset, its planted truth
+    cache, fasta, bam = bench.get_dataset(bench_root, BENCH_MBP)
+    truth = cache + "/truth.vcf"
+    with FastaReader(fasta) as fa:      # one contig at 1 Mbp
+        (contig,) = fa.get_chromosome_names()
+        region = f"{contig}:1-{fa.get_chromosome_sequence_length(contig)}"
+    stream_totals = []
+    real_stream = streaming.stream_inference
+
+    def counted_stream(*args, **kwargs):
+        stream_totals.append(real_stream(*args, **kwargs))
+        return stream_totals[-1]
+
+    def call(label, model_path, device, precision):
+        os.environ["PEPPER_TPU_PRECISION"] = precision
+        out = os.path.join(work_dir, label) + "/"
+        fl.launches = 0
+        t = time.time()
+        rc = variant_cli(["call_variant", "-b", bam, "-f", fasta, "-m",
+                          model_path, "-o", out, "-t", str(os.cpu_count()),
+                          "--ont_r9_guppy5_sup", "--device", device])
+        wall = time.time() - t
+        check(rc in (0, None), f"call_variant {label} exited {rc}")
+        full = out + "PEPPER_VARIANT_FULL.vcf.gz"
+        recs = read_vcf(full)
+        seconds = streamstats.CURRENT.seconds
+        return {"wall": wall, "K1": fl.launches,
+                "candidates": stream_totals[-1],
+                "sites": {(r.contig, r.pos, r.ref, tuple(r.alts)):
+                          tuple(sorted(r.genotype())) for r in recs},
+                "ap": {(r.contig, r.pos, r.ref, tuple(r.alts)):
+                       dict(zip(r.format, r.samples[0])).get("AP")
+                       for r in recs},
+                "pass": sum("PASS" in r.filters for r in recs),
+                "recall": planted_snp_recall(recs, truth),
+                "report": evaluate(full, truth, None, region=region),
+                "gates": seconds.get("gates", 0.0),
+                "vcf_emit": seconds.get("vcf_emit", 0.0)}
+
+    streaming.stream_inference = counted_stream
+    try:
+        runs = {"cuda bf16": call("trained_bf16", model, "cuda", "bf16"),
+                "cuda f32": call("trained_f32", model, "cuda", "f32"),
+                "cpu f32": call("trained_cpu", model, "cpu", "f32"),
+                "random cuda bf16": call("random_bf16",
+                                         bench.make_model(cache), "cuda",
+                                         "bf16")}
+    finally:
+        streaming.stream_inference = real_stream
+        os.environ.pop("PEPPER_TPU_PRECISION", None)
+    for label, r in runs.items():
+        rep = r["report"]
+        print(f"trained-model call_variant {label} on the bench's "
+              f"{BENCH_MBP} Mbp: {r['candidates']} candidates, "
+              f"{len(r['sites'])} records ({r['pass']} PASS), wall "
+              f"{r['wall']:.2f}s, K1 {r['K1']}; stream gates "
+              f"{r['gates']:.2f} and vcf_emit {r['vcf_emit']:.2f} core-s; "
+              f"planted-SNP recall {r['recall']:.4f}; SNP P/R/F1 "
+              f"{rep['SNP']['precision']}/{rep['SNP']['recall']}/"
+              f"{rep['SNP']['f1']}, INDEL P/R/F1 "
+              f"{rep['INDEL']['precision']}/{rep['INDEL']['recall']}/"
+              f"{rep['INDEL']['f1']}", flush=True)
+    bf16, f32, cpu = runs["cuda bf16"], runs["cuda f32"], runs["cpu f32"]
+    only, flips = site_diff(bf16["sites"], f32["sites"])
+    share = (only + flips) / max(1, len(f32["sites"]))
+    f1_gap = {k: abs(bf16["report"][k]["f1"] - f32["report"][k]["f1"])
+              for k in ("SNP", "INDEL")}
+    flipped = sorted(k for k in bf16["sites"].keys() & f32["sites"].keys()
+                     if bf16["sites"][k] != f32["sites"][k])
+    cpu_only, cpu_flips = site_diff(f32["sites"], cpu["sites"])
+    print(f"trained-model records (contig, pos, ref, alt, GT): bf16 against "
+          f"f32 on the card: {only} gained or lost, {flips} genotype flips "
+          f"of {len(f32['sites'])} ({100 * share:.4f}%; bar 0.5%, none "
+          f"gained or lost), F1 gaps SNP {f1_gap['SNP']:.6f} INDEL "
+          f"{f1_gap['INDEL']:.6f} (bar 0.01); cuda f32 against cpu f32: "
+          f"{cpu_only} gained or lost, {cpu_flips} flips (bar 0); the "
+          f"first flips (site, bf16 GT and AP, f32 GT and AP): "
+          + str([(k, bf16["sites"][k], bf16["ap"][k], f32["sites"][k],
+                  f32["ap"][k]) for k in flipped[:5]]), flush=True)
+    for label in ("cuda bf16", "cuda f32"):
+        r = runs[label]
+        check(r["recall"] >= 0.6, f"{label}: planted-SNP recall "
+              f"{r['recall']:.4f} under the JAX contract's 0.6")
+    for label in ("cuda bf16", "cuda f32", "random cuda bf16"):
+        r = runs[label]
+        want = 2 * -(-r["candidates"] // SHARD_ROWS)
+        check(r["K1"] == want, f"call_variant {label} launched K1 "
+              f"{r['K1']} times for {r['candidates']} candidates (expected "
+              f"{want})")
+    check(cpu["K1"] == 0, "the CPU run launched K1")
+    check(cpu_only == 0 and cpu_flips == 0,
+          "cuda f32 and cpu f32 call different records")
+    check(only == 0 and share <= 0.005 and max(f1_gap.values()) <= 0.01,
+          "bf16 against f32 with trained weights breaks its bar")
+    return ({"evals": k1_evals, "call_variant_bf16": bf16["K1"],
+             "call_variant_f32": f32["K1"]}, k3, k4)
+
+
+# -------------------------------------------------------------- phase 24
+POLISH_TRAINED_BP = 100_000
+POLISH_TRAINED_SEEDS = (131, 132, 133)
+POLISH_TRAINED_EDITS = (60, 25, 25)   # tests/test_polish.py's 12/5/5 per 20 kb
+POLISH_TRAINED_BATCH = 32
+POLISH_TRAINED_EPOCHS = 1
+POLISH_TRAINED_LR = 1e-3
+
+
+def polish_scores(fasta_text, genome, edits) -> dict:
+    """tests/test_polish.py's measures of a one-contig polished FASTA
+    against the truth (the draft with its planted edits applied): length
+    ratio, 21-mer identity, planted corrections recovered (each one's truth
+    context present, among those absent from the draft)."""
+    from pepper_tpu_torch.utils.synth import _apply_haplotype
+
+    polished = "".join(ln for ln in fasta_text.splitlines()
+                       if not ln.startswith(">"))
+    draft = genome[0][1]
+    true_seq, _ = _apply_haplotype(draft, edits, 0)
+    k = 21
+    truth_kmers = {true_seq[i:i + k] for i in range(len(true_seq) - k)}
+    kmers = {polished[i:i + k] for i in range(len(polished) - k)}
+    contexts, shift = [], 0
+    for v in edits:
+        tpos = v.pos + shift
+        contexts.append(true_seq[max(0, tpos - 15):tpos + len(v.alt) + 15])
+        shift += len(v.alt) - len(v.ref)
+    checked = [c for c in contexts if c not in draft]
+    return {"length": len(polished) / len(true_seq),
+            "identity": len(truth_kmers & kmers) / len(truth_kmers),
+            "recovered": sum(c in polished for c in checked)
+            / max(1, len(checked)), "checked": len(checked),
+            "bases": len(polished)}
+
+
+def phase_trained_polish(dev, work_dir, name):
+    """The polish model trained by the port's train_polish_loop on the
+    card, then the port's polish CLI with that checkpoint on the card
+    (bf16, f32) and the CPU (f32), scored against the planted truth.
+    Returns K2's launches (evals, each polish on the card)."""
+    from pepper_tpu_torch.cli.pepper_main import main as polish_cli
+    from pepper_tpu_torch.models.checkpoint import (load_checkpoint,
+                                                    params_from_jax)
+    from pepper_tpu_torch.ops import fused_gru as fg
+    from pepper_tpu_torch.train import polish_train as pt
+
+    t0 = time.time()
+    data = polish_draft(work_dir, POLISH_TRAINED_BP, POLISH_TRAINED_SEEDS,
+                        POLISH_TRAINED_EDITS)
+    x8, y8, n_edits = polish_training_images(work_dir, data)
+    n = len(x8)
+    print(f"trained-polish draft: {POLISH_TRAINED_BP} bp, seeds "
+          f"{POLISH_TRAINED_SEEDS}, {n_edits} planted corrections, 10 kb "
+          f"reads at coverage 30, a truth-to-draft BAM; {n} labeled "
+          f"sequences [{time.time() - t0:.1f}s]", flush=True)
+
+    fg.launches = 0
+    t = time.time()
+    model = pt.train_polish_loop(
+        (x8, y8), (x8, y8), os.path.join(work_dir, "models"),
+        batch_size=POLISH_TRAINED_BATCH, epoch_limit=POLISH_TRAINED_EPOCHS,
+        lr=POLISH_TRAINED_LR, seed=7, device="cuda")
+    train_wall = time.time() - t
+    windows = len(range(0, 1000 - WINDOW + 1, 50))
+    steps = POLISH_TRAINED_EPOCHS * (n // POLISH_TRAINED_BATCH) * windows
+    k2_evals = fg.launches
+    want = POLISH_TRAINED_EPOCHS * 2 * windows * -(-n // TRAIN_BATCH)
+    check(k2_evals == want, f"the polish trainer's evals launched K2 "
+          f"{k2_evals} times (expected {want})")
+    params, meta = load_checkpoint(model)
+    print(f"trained-polish training on {name}: {steps} window steps at "
+          f"batch {POLISH_TRAINED_BATCH}, lr {POLISH_TRAINED_LR:g}, in "
+          f"{train_wall:.2f}s wall; accuracy {meta['accuracy']:.3f}%; K2 "
+          f"{k2_evals} (evals)", flush=True)
+
+    def run(label, device, precision):
+        os.environ["PEPPER_TPU_PRECISION"] = precision
+        out = os.path.join(work_dir, label) + "/"
+        fg.launches = 0
+        t = time.time()
+        rc, n_batches, recs = recorded_polish(lambda: polish_cli([
+            "polish", "-b", data["bam"], "-f", data["draft"], "-m", model,
+            "-o", out, "-t", str(os.cpu_count()), "--no_realignment",
+            "--device", device]), device)
+        wall = time.time() - t
+        check(rc in (0, None), f"polish {label} exited {rc}")
+        fasta = glob.glob(out + "*.fa")
+        check(len(fasta) == 1, f"polish {label} wrote {fasta}")
+        with open(fasta[0]) as fh:
+            text = fh.read()
+        return {"wall": wall, "K2": fg.launches, "batches": n_batches,
+                "recs": recs, "text": text,
+                **polish_scores(text, data["genome"], data["edits"])}
+
+    try:
+        runs = {"cuda bf16": run("bf16", "cuda", "bf16"),
+                "cuda f32": run("f32", "cuda", "f32"),
+                "cpu f32": run("cpu", "cpu", "f32")}
+    finally:
+        os.environ.pop("PEPPER_TPU_PRECISION", None)
+    for label, r in runs.items():
+        print(f"trained-polish polish {label}: {len(r['recs'])} sequences "
+              f"in {r['batches']} batches, wall {r['wall']:.2f}s, K2 "
+              f"{r['K2']}; length ratio {r['length']:.6f}, 21-mer identity "
+              f"{r['identity']:.6f}, corrections recovered "
+              f"{r['recovered']:.4f} of {r['checked']}", flush=True)
+    bf16, f32, cpu = runs["cuda bf16"], runs["cuda f32"], runs["cpu f32"]
+    diff_bf16 = polish_label_diffs(bf16["recs"], f32["recs"])
+    diff_cpu = polish_label_diffs(f32["recs"], cpu["recs"],
+                                  params_from_jax(params))
+    low = [d for d in diff_cpu if d[3] < 1e-4]
+    share = len(diff_bf16) / max(1, f32["bases"])
+    print(f"trained-polish bases: bf16 against f32 on the card differ at "
+          f"{len(diff_bf16)} of {f32['bases']} ({100 * share:.4f}%; bar "
+          f"0.05%), identity gap {abs(bf16['identity'] - f32['identity']):.6f}"
+          f" (bar 0.001); cuda f32 against cpu f32 at {len(diff_cpu)}, all "
+          f"at a cpu vote margin under 1e-4: {len(low) == len(diff_cpu)} "
+          f"{diff_cpu[:10]}; FASTA identical: {f32['text'] == cpu['text']}",
+          flush=True)
+    for label in ("cuda bf16", "cuda f32"):
+        r = runs[label]
+        check(r["length"] > 0.95 and r["identity"] > 0.95
+              and r["recovered"] >= 0.7 and r["checked"] >= 10,
+              f"{label}: the trained polish misses the JAX contract "
+              f"(length > 0.95, identity > 0.95, recovered >= 0.7)")
+        check(r["K2"] == 38 * r["batches"], f"polish {label} launched K2 "
+              f"{r['K2']} times for {r['batches']} batches (expected 38 "
+              f"each)")
+    check(cpu["K2"] == 0, "the CPU polish launched K2")
+    check(len(low) == len(diff_cpu), "cuda f32 consensus differs from cpu "
+          "f32 where the cpu vote margin exceeds 1e-4")
+    check(diff_cpu or f32["text"] == cpu["text"], "cuda f32 and cpu f32 "
+          "polished FASTAs differ although every base label agrees")
+    check(share <= 5e-4 and abs(bf16["identity"] - f32["identity"]) <= 1e-3,
+          "bf16 against f32 with trained weights breaks its bar")
+    return {"evals": k2_evals, "polish_bf16": bf16["K2"],
+            "polish_f32": f32["K2"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2902,7 +3310,8 @@ def main() -> int:
     phase_train_step(dev)
     work_dir = tempfile.mkdtemp(prefix="chip_smoke_",
                                 dir=os.path.join(ROOT, "build"))
-    for sub in ("variant", "polish", "train", "hp", "polish_train"):
+    for sub in ("variant", "polish", "train", "hp", "polish_train", "trained",
+                "trained_polish"):
         os.makedirs(os.path.join(work_dir, sub))
     try:
         k1["launches"], variant_run = phase_end_to_end(
@@ -2931,6 +3340,12 @@ def main() -> int:
         (k1["launches_bench"], k2["launches_bench"], k3["launches_bench"],
          k4["launches_bench"]) = (bench[k] for k in ("K1", "K2", "K3", "K4"))
         phase_profile_stream(work_dir)
+        k1["launches_trained"], k3["launches_trained"], \
+            k4["launches_trained"] = phase_trained_variant(
+                dev, os.path.join(work_dir, "trained"), env["card"],
+                os.path.join(work_dir, "bench"))
+        k2["launches_trained"] = phase_trained_polish(
+            dev, os.path.join(work_dir, "trained_polish"), env["card"])
     finally:
         shutil.rmtree(work_dir, ignore_errors=True)
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)

@@ -65,6 +65,12 @@ def numpy_polish_params(seed: int,
                        "bias": u((5,), 2 * hidden)}}
 
 
+def hidden_size(params: Params) -> int:
+    """The biGRU width H of a parameter tree (its encoder's W_hh columns):
+    the trainer, its eval and the consensus take it from the checkpoint."""
+    return params["gru_encoder"]["weight_hh_l0"].shape[1]
+
+
 def init_hidden(batch_size: int, hidden: int = PolishTrainOptions.HIDDEN_SIZE,
                 dtype=torch.float32, device="cpu") -> torch.Tensor:
     """[B, 2, H] — the reference's batch-major hidden layout."""

@@ -98,14 +98,15 @@ def run(args) -> dict:
     else:
         if args.blocks > 1:
             raise ValueError("--blocks is a variant option")
-        from pepper_tpu_torch.models.polish_model import init_hidden
+        from pepper_tpu_torch.models.polish_model import (hidden_size,
+                                                          init_hidden)
         from pepper_tpu_torch.parallel.mesh import rank_block
         lo, hi = rank_block(n, group, exact=True)
         step = _timed(pt.make_polish_train_step(params, optimizer, group,
                                                 allreduce), device, step_ms)
         x = torch.from_numpy(images[lo:hi].astype(np.float32)).to(device)
         y = torch.from_numpy(labels[lo:hi].astype(np.int64)).to(device)
-        hidden = init_hidden(hi - lo, pt._hidden_size(params), device=device)
+        hidden = init_hidden(hi - lo, hidden_size(params), device=device)
         starts = list(pt._windows())
         for s in range(args.steps):
             i = starts[s % len(starts)]

@@ -21,7 +21,8 @@ import numpy as np
 import torch
 
 from pepper_tpu_torch.models.checkpoint import params_from_jax
-from pepper_tpu_torch.models.polish_model import init_hidden, polish_forward
+from pepper_tpu_torch.models.polish_model import (hidden_size, init_hidden,
+                                                  polish_forward)
 from pepper_tpu_torch.options import PolishImageOptions, PolishTrainOptions
 from pepper_tpu_torch.polish.datastore import (PolishImageStore,
                                                PolishPredictionStore,
@@ -38,12 +39,16 @@ def _log(msg: str) -> None:
 def window_votes(cparams, x: torch.Tensor) -> torch.Tensor:
     """Summed softmax votes f32 [B,1000,5] of the 19 windows over images
     x [B,1000,10] (already in the model's dtype), with the biGRU hidden
-    carried from window to window and the adds in scan order."""
+    carried from window to window and the adds in scan order. The hidden
+    width is the checkpoint's, as in the trainer: the JAX package fixes it
+    at PolishTrainOptions.HIDDEN_SIZE (pepper_tpu/polish/consensus.py:56)
+    and serves only width-128 models."""
     window = PolishTrainOptions.TRAIN_WINDOW
     B, seq_len = x.shape[:2]
     votes = torch.zeros((B, seq_len, PolishImageOptions.TOTAL_LABELS),
                         dtype=torch.float32, device=x.device)
-    hidden = init_hidden(B, dtype=x.dtype, device=x.device)
+    hidden = init_hidden(B, hidden_size(cparams), dtype=x.dtype,
+                         device=x.device)
     for start in range(0, seq_len - window + 1,
                        PolishTrainOptions.WINDOW_JUMP):
         logits, hidden = polish_forward(cparams, x[:, start:start + window],

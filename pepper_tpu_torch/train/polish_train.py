@@ -36,7 +36,8 @@ import torch
 
 from pepper_tpu_torch.models.checkpoint import (load_opt_state,
                                                 save_checkpoint)
-from pepper_tpu_torch.models.polish_model import (init_hidden,
+from pepper_tpu_torch.models.polish_model import (hidden_size,
+                                                  init_hidden,
                                                   init_polish_params,
                                                   polish_forward)
 from pepper_tpu_torch.options import PolishImageOptions, PolishTrainOptions
@@ -98,10 +99,6 @@ def cross_entropy_mean(logits: torch.Tensor,
     return -logp.gather(-1, labels[..., None].long()).mean()
 
 
-def _hidden_size(params: Dict) -> int:
-    return params["gru_encoder"]["weight_hh_l0"].shape[1]
-
-
 def make_polish_train_step(params: Dict, optimizer: torch.optim.Optimizer,
                            group=None, allreduce: Callable = reduce_flat):
     """step(chunk f32 [B,T,F], label_chunk [B,T], hidden [B,2,H]) ->
@@ -159,7 +156,7 @@ def polish_accuracy(params: Dict, images: np.ndarray, labels: np.ndarray,
     window = PolishTrainOptions.TRAIN_WINDOW
     n_cls = PolishImageOptions.TOTAL_LABELS
     device = next(p for _, p in sorted_leaves(params)).device
-    hidden_size = _hidden_size(params)
+    width = hidden_size(params)
     cm = np.zeros((n_cls, n_cls), np.int64)
     first, end = rank_block(len(images), group)
     with torch.inference_mode():
@@ -167,7 +164,7 @@ def polish_accuracy(params: Dict, images: np.ndarray, labels: np.ndarray,
             hi = min(lo + batch_size, end)
             x = _upload(images[lo:hi], device).float()
             y = np.asarray(labels[lo:hi]).astype(np.int64)
-            hidden = init_hidden(x.shape[0], hidden_size, device=device)
+            hidden = init_hidden(x.shape[0], width, device=device)
             for i in _windows():
                 logits, hidden = polish_forward(
                     params, x[:, i:i + window], hidden, fused_rnn=True)
@@ -221,7 +218,7 @@ def train_polish_loop(train: Arrays, test: Optional[Arrays], model_dir: str,
             log("OPTIMIZER STATE RESTORED")
     set_learning_rate(optimizer, lr)
     step_fn = make_polish_train_step(params, optimizer, group)
-    hidden_size = _hidden_size(params)
+    width = hidden_size(params)
 
     # run-stamped stats artifacts (reference train_distributed.py)
     stats_dir = os.path.join(model_dir,
@@ -249,7 +246,7 @@ def train_polish_loop(train: Arrays, test: Optional[Arrays], model_dir: str,
                 idx = order[lo:lo + batch_size][first:end]   # this rank's
                 x = _upload(images[idx], device).float()
                 y = _upload(np.asarray(labels[idx]).astype(np.int64), device)
-                hidden = init_hidden(len(idx), hidden_size, device=device)
+                hidden = init_hidden(len(idx), width, device=device)
                 for i in _windows():
                     hidden, loss = step_fn(x[:, i:i + window],
                                            y[:, i:i + window], hidden)

@@ -136,14 +136,18 @@ def planted_counts(mbp: float):
     return int(800 * mbp), int(100 * mbp), int(100 * mbp)
 
 
-def get_dataset(cache_root: str, mbp: float):
-    """(cache dir, fasta, bam) of the bench's genome, built once per key."""
+def get_dataset(cache_root: str, mbp: float, seeds=(1, 2, 3)):
+    """(cache dir, fasta, bam) of the bench's genome, built once per key.
+    `seeds` are the genome's, the planted variants' and the reads'; the
+    cache also holds the planted variants as `truth.vcf`."""
     from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
                                               simulate_reads_fast,
-                                              write_dataset)
+                                              write_dataset, write_truth_vcf)
 
     contigs = n_contigs(mbp)
-    key = hashlib.md5(f"{mbp}-{contigs}-{COVERAGE}-{READ_LEN}-{ERROR}-v2"
+    genome_seed, variant_seed, read_seed = seeds
+    key = hashlib.md5(f"{mbp}-{contigs}-{COVERAGE}-{READ_LEN}-{ERROR}-"
+                      f"{genome_seed}-{variant_seed}-{read_seed}-v3"
                       .encode()).hexdigest()[:10]
     cache = os.path.join(cache_root, f"pepper_bench_{key}")
     fasta, bam = cache + "/ref.fa", cache + "/reads.bam"
@@ -151,12 +155,14 @@ def get_dataset(cache_root: str, mbp: float):
     if not (os.path.isfile(bam + ".bai") and os.path.isfile(fasta + ".fai")):
         os.makedirs(cache, exist_ok=True)
         t0 = time.time()
-        genome = random_genome(int(mbp * 1e6 / contigs), seed=1,
+        genome = random_genome(int(mbp * 1e6 / contigs), seed=genome_seed,
                                n_contigs=contigs)
-        variants = plant_variants(dict(genome), *planted_counts(mbp), seed=2)
+        variants = plant_variants(dict(genome), *planted_counts(mbp),
+                                  seed=variant_seed)
         records = simulate_reads_fast(genome, variants, coverage=COVERAGE,
                                       read_length=READ_LEN, error_rate=ERROR,
-                                      seed=3)
+                                      seed=read_seed)
+        write_truth_vcf(cache + "/truth.vcf", genome, variants)
         write_dataset(cache, genome, records)
         log(f"dataset built in {time.time() - t0:.1f}s ({len(records)} "
             f"reads)")

@@ -90,14 +90,16 @@ def _read_vcf(path):
             [ln.split("\t") for ln in lines if not ln.startswith("#")])
 
 
-def test_streamed_vcfs_match_jax(port_streamed, jax_streamed):
+def assert_vcfs_match(got_dir, want_dir) -> int:
+    """The module docstring's contract over the 5 VCFs of two output
+    directories; returns the number of records compared."""
     names = sorted(os.path.basename(p)
-                   for p in glob.glob(jax_streamed + "*.vcf.gz"))
+                   for p in glob.glob(want_dir + "*.vcf.gz"))
     assert len(names) == 5
     n_records = 0
     for name in names:
-        want_head, want = _read_vcf(jax_streamed + name)
-        got_head, got = _read_vcf(port_streamed + name)
+        want_head, want = _read_vcf(want_dir + name)
+        got_head, got = _read_vcf(got_dir + name)
         assert got_head == want_head, name
         assert len(got) == len(want), name
         for g, w in zip(got, want):
@@ -114,7 +116,11 @@ def test_streamed_vcfs_match_jax(port_streamed, jax_streamed):
                 else:
                     assert g_sample[key] == w_sample[key], (name, key, g, w)
         n_records += len(want)
-    assert n_records >= 10   # not a degenerate run
+    return n_records
+
+
+def test_streamed_vcfs_match_jax(port_streamed, jax_streamed):
+    assert assert_vcfs_match(port_streamed, jax_streamed) >= 10
 
 
 def test_staged_matches_streamed_byte_identical(dataset, port_streamed):
