@@ -134,11 +134,9 @@ class NativeVCFWriteEngine:
         gt_prob = np.ascontiguousarray(gt_prob, np.float64)
         nap = np.ascontiguousarray(nap, np.float64)
         in_repeat = np.ascontiguousarray(in_repeat, np.uint8)
-        import time as _time
-
         from pepper_tpu_torch.utils import streamstats
-        t0 = _time.thread_time()
-        with self._native_lock:
+        with streamstats.CURRENT.span("(native_batch)", cpu=True), \
+                self._native_lock:
             if self._sink is None:
                 raise RuntimeError("native VCF sink is closed")
             rc = self._lib.vcf_sink_write_batch(
@@ -148,7 +146,6 @@ class NativeVCFWriteEngine:
                 _ptr(pg, ctypes.c_uint8), _ptr(depth, ctypes.c_int32),
                 _ptr(support, ctypes.c_int32), _ptr(gt_prob, ctypes.c_double),
                 _ptr(nap, ctypes.c_double), _ptr(in_repeat, ctypes.c_uint8))
-        streamstats.CURRENT.add("(native_batch)", _time.thread_time() - t0)
         if rc != 0:
             raise RuntimeError("native VCF batch write failed")
         self._last_position = int(pos[-1])

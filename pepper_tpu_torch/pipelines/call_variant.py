@@ -14,6 +14,7 @@ from pepper_tpu_torch.options import PipelineConfig
 from pepper_tpu_torch.pipelines.find_candidates import process_candidates
 from pepper_tpu_torch.pipelines.make_images import generate_images
 from pepper_tpu_torch.runtime.inference import run_inference
+from pepper_tpu_torch.utils import streamstats
 
 
 def _log(msg: str) -> None:
@@ -53,7 +54,23 @@ def call_variant(config: PipelineConfig) -> dict:
     for CUDA where there is none raises before any stage starts. Several
     hosts (--num_hosts/--host_id, or a torch.distributed coordinator)
     each run their stripe of the regions and host 0 writes the VCFs after
-    the candidate gather (parallel/multihost.py)."""
+    the candidate gather (parallel/multihost.py).
+
+    The job is one accounting epoch of utils/streamstats.py: from entry to
+    return the calling thread is in one `main.*` state at a time
+    (`main.job_head` until the stream hands regions to its encode
+    threads; a staged job, which has no stream, spends all of it there)."""
+    stats = streamstats.reset()
+    stats.state("main.job_head")
+    try:
+        vcf_paths = _call_variant(config, stats)
+    finally:
+        stats.state(None)
+    _log("DISPATCH STATES (wall seconds): " + stats.summary(states=True))
+    return vcf_paths
+
+
+def _call_variant(config: PipelineConfig, stats) -> dict:
     from pepper_tpu_torch.parallel import multihost
     from pepper_tpu_torch.runtime.streaming import resolve_device
 
@@ -128,6 +145,7 @@ def call_variant(config: PipelineConfig) -> dict:
                                  image_store_path,
                                  candidate_collector=collector,
                                  resume_journal=journal_path)
+            # the stream returns in main.stage3_drain
             margin_all, dv_all = collector.finish()
         except BaseException:
             # a crashed stream must not leave truncated .vcf.gz files with
@@ -139,6 +157,7 @@ def call_variant(config: PipelineConfig) -> dict:
             if emitter is not None:
                 emitter.abort()
             raise
+        stats.state("main.vcf_close")
         with stage("find_candidates"):
             if emitter is not None:
                 totals, vcf_paths = emitter.finish()
@@ -146,6 +165,7 @@ def call_variant(config: PipelineConfig) -> dict:
             else:
                 vcf_paths = finalize_candidates(config, output_dir,
                                                 margin_all, dv_all, t3)
+        stats.state("main.job_rest")
         if journal_path and os.path.exists(journal_path):
             os.remove(journal_path)   # run complete: nothing to resume
     else:

@@ -500,7 +500,7 @@ class _OrderedEmitter:
         (tuples or ColumnarDv blocks), credit its rows against their
         intervals, then emit the final prefix."""
         from pepper_tpu_torch.utils import streamstats
-        with streamstats.CURRENT.timed_cpu("(emit_bucket)"):
+        with streamstats.CURRENT.span("(emit_bucket)", cpu=True):
             for cand in new_dv:
                 if isinstance(cand, ColumnarDv):
                     self._bucket_columnar(cand)
@@ -754,15 +754,15 @@ class StreamingCandidateCollector:
                     use_columnar = (
                         hasattr(self._emitter.writer, "write_sites_batch")
                         and (self._config.allowed_multiallelics or 0) >= 1)
-                    with stats.timed_cpu("gates"):
+                    with stats.span("gates", cpu=True):
                         batch_candidates(
                             self._config, span, *batch, margin_batch,
                             dv_batch,
                             columnar_out=dv_batch if use_columnar else None)
-                    with stats.timed_cpu("vcf_emit"):
+                    with stats.span("vcf_emit", cpu=True):
                         self._emitter.gated(dv_batch, runs)
                 else:
-                    with stats.timed_cpu("gates"):
+                    with stats.span("gates", cpu=True):
                         batch_candidates(self._config, span, *batch,
                                          self._margin, self._dv)
             fasta.close()

@@ -166,7 +166,7 @@ def stream_polish(bam_file: str, draft_file: str, model_path: str,
                         return
                     chr_name = group[0][1][0]
                     ivs = [(s, e) for _i, (_c, s, e) in group]
-                    with stats.timed_cpu("encode"):
+                    with stats.span("encode", cpu=True):
                         res_list = create_polish_summaries_multi(
                             bam, fasta, chr_name, ivs,
                             realignment_flag=realignment_flag)
@@ -204,7 +204,7 @@ def stream_polish(bam_file: str, draft_file: str, model_path: str,
     total = 0
 
     def submit(batch_metas, batch_images):
-        with stats.timed_cpu("batch_submit"):
+        with stats.span("batch_submit", cpu=True):
             labels = runner.submit(pad_consensus_batch(batch_images,
                                                        batch_size))
         return batch_metas, labels
@@ -214,20 +214,20 @@ def stream_polish(bam_file: str, draft_file: str, model_path: str,
     flushed_seqs = [0]
 
     def flush(batch_metas, labels, journal_recs: bool = True):
-        with stats.timed("d2h_wait"):
+        with stats.span("d2h_wait"):
             labels = np.asarray(labels)[:len(batch_metas)]
         for meta, base_labels in zip(batch_metas, labels):
             contig, start, end, chunk_id, position, index, idx = meta
             if store is not None:
-                with stats.timed_cpu("store_write"):
+                with stats.span("store_write", cpu=True):
                     store.write_prediction(contig, start, end, chunk_id,
                                            position, index, base_labels)
             if stitcher is not None:
-                with stats.timed_cpu("stitch_feed"):
+                with stats.span("stitch_feed", cpu=True):
                     stitcher.add(contig, start, end, chunk_id, position,
                                  index, base_labels)
             if journal is not None and journal_recs:
-                with stats.timed_cpu("journal"):
+                with stats.span("journal", cpu=True):
                     journal.append(("pseq", idx, start, end, chunk_id,
                                     position, index, base_labels))
                 flushed_seqs[0] += 1

@@ -364,7 +364,10 @@ def stream_inference(config: PipelineConfig, intervals,
         journal = ResumeJournal(resume_journal, intervals,
                                 config.model_path, inputs, setting)
 
-    stats = streamstats.reset()   # per-component accounting for this run
+    # the caller's accounting epoch (call_variant's job, or a run of its
+    # own); run alone, the stream leaves the states it enters on return
+    stats = streamstats.CURRENT
+    alone = stats.state_key is None
     n_threads = max(1, config.threads)
     work: "queue.Queue" = queue.Queue()
     for item in enumerate(intervals):
@@ -393,14 +396,11 @@ def stream_inference(config: PipelineConfig, intervals,
                         idx, (chr_name, start, end) = work.get_nowait()
                     except queue.Empty:
                         return
-                    t0 = time.thread_time()
-                    cands = create_region_summary(config, bam, fasta,
-                                                  chr_name, start, end)
-                    t1 = time.thread_time()
-                    fields = _batch_fields(cands) if cands else None
-                    t2 = time.thread_time()
-                    stats.add("encode", t1 - t0)
-                    stats.add("batch_fields", t2 - t1)
+                    with stats.span("encode", cpu=True):
+                        cands = create_region_summary(config, bam, fasta,
+                                                      chr_name, start, end)
+                    with stats.span("batch_fields", cpu=True):
+                        fields = _batch_fields(cands) if cands else None
                     # empty intervals are reported too: the ordered
                     # stage-3 watermark accounts for every interval
                     _put_result((idx, fields))
@@ -415,6 +415,7 @@ def stream_inference(config: PipelineConfig, intervals,
     t0 = time.time()
     for t in threads:
         t.start()
+    stats.state("main.dispatch")
 
     image_store = ImageStore(image_store_path, "w") if image_store_path \
         else None
@@ -437,22 +438,22 @@ def stream_inference(config: PipelineConfig, intervals,
         nonlocal batch_no
         contigs, positions, depths, cand_lists, freqs, _, runs = meta
         n = len(contigs)
-        with stats.timed("d2h_wait"):
+        with stats.span("d2h_wait"):
             probs_np = np.asarray(probs)[:n].astype(np.float64)
         if store is not None:
-            with stats.timed_cpu("store_write"):
+            with stats.span("store_write", cpu=True):
                 store.write_prediction(batch_no, contigs, positions, depths,
                                        cand_lists, freqs, probs_np)
         if candidate_collector is not None:
             # freqs pass as a flat array; the gates materialize per-row
             # lists only on the (rare) scalar path
-            with stats.timed("collector_put"):
+            with stats.span("collector_put"):
                 candidate_collector.add(
                     contigs, positions, depths, cand_lists,
                     np.ravel(np.asarray(freqs)), probs_np, runs)
         batch_no += 1
         if journal is not None and journal_batch:
-            with stats.timed_cpu("journal"):
+            with stats.span("journal", cpu=True):
                 journal.append(
                     ("batch", list(contigs), np.asarray(positions),
                      np.asarray(depths), list(cand_lists),
@@ -511,7 +512,9 @@ def stream_inference(config: PipelineConfig, intervals,
 
     try:
         while done_sentinels < n_threads:
+            stats.state("main.wait_encode")
             item = results.get()
+            stats.state("main.dispatch")
             if item is None:
                 done_sentinels += 1
                 continue
@@ -546,19 +549,26 @@ def stream_inference(config: PipelineConfig, intervals,
                     interval_idx)
             total += len(positions)
             while buf.rows >= runner.batch:
-                with stats.timed_cpu("batch_submit"):
+                stats.state("main.submit")
+                with stats.span("batch_submit", cpu=True):
                     meta, buf = buf.take(runner.batch)
                     out = runner.submit(meta[5])
+                stats.state("main.wait_flush")
                 _put_flush((meta, out))
+                stats.state("main.dispatch")
+        stats.state("main.wait_producers")
         for t in threads:
             t.join()
         if buf.rows and not errors:
-            with stats.timed_cpu("batch_submit"):
+            stats.state("main.submit")
+            with stats.span("batch_submit", cpu=True):
                 meta, _ = buf.take(buf.rows)
                 out = runner.submit(meta[5])
+            stats.state("main.wait_flush")
             _put_flush((meta, out))
     finally:
         stop.set()   # unblock any producer still waiting on the queues
+        stats.state("main.stage3_drain")
         # ALWAYS stop + join the flusher before returning OR raising: an
         # abandoned flusher would keep feeding the collector and native
         # VCF sink while the caller's error path aborts them (freeing the
@@ -574,6 +584,8 @@ def stream_inference(config: PipelineConfig, intervals,
         flush_thread.join()
         if journal is not None:
             journal.close()  # caller deletes the file after stage 3 ends
+        if alone:
+            stats.state(None)
     if errors:
         raise RuntimeError(f"streaming shard failed: {errors[0]}") \
             from errors[0]

@@ -262,6 +262,7 @@ def bench_e2e(cache, fasta, bam, n_threads, device, keep_journal=""):
     os.makedirs(pred_dir)
     pred_path = pred_dir + "pepper_predictions.hdf"
     fused_lstm.launches = 0
+    streamstats.reset()   # one accounting epoch per run
     t0 = time.time()
     emitter = make_ordered_emitter(config, out + "/", intervals)
     collector = StreamingCandidateCollector(config, emitter)

@@ -64,6 +64,7 @@ def run_stream(cache, fasta, bam, threads, device, with_collector,
         StreamingCandidateCollector, make_ordered_emitter)
     from pepper_tpu_torch.pipelines.make_images import build_intervals
     from pepper_tpu_torch.runtime.streaming import stream_inference
+    from pepper_tpu_torch.utils import streamstats
 
     config = bench.bench_config(fasta, bam, threads, device)
     config.model_path = bench.make_model(cache)
@@ -74,6 +75,7 @@ def run_stream(cache, fasta, bam, threads, device, with_collector,
     os.makedirs(out + "/preds/")
     journal = out + "/resume.journal"
 
+    streamstats.reset()   # one accounting epoch per run
     t0 = time.time()
     emitter = make_ordered_emitter(config, out + "/", intervals) \
         if with_emitter else None
