@@ -171,6 +171,7 @@ def read_events(buf: "_EventBuffer", read: TrimmedRead, ref_codes: np.ndarray,
                 offs[bases == 67] = 2
                 offs[bases == 71] = 3
                 offs[bases == 84] = 4
+                offs[bases == 68] = 6   # a 'D' base: feature_index's column
                 cols = start_col + offs
                 feat_mask = qual_ok & ref_valid[ridx]
                 buf.matrix_rows.append(ridx[feat_mask])

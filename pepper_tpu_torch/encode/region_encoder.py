@@ -61,12 +61,13 @@ class CandidateBatch:
 
     __slots__ = ("contig", "positions", "depths", "candidates",
                  "candidate_frequency", "images", "base_labels",
-                 "type_labels")
+                 "type_labels", "sections")
 
     def __init__(self, contig: str, positions: np.ndarray,
                  depths: np.ndarray, candidates: List[str],
                  candidate_frequency: np.ndarray, images: np.ndarray,
-                 base_labels: np.ndarray, type_labels: np.ndarray):
+                 base_labels: np.ndarray, type_labels: np.ndarray,
+                 sections: Optional[Dict[str, float]] = None):
         self.contig = contig
         self.positions = positions
         self.depths = depths
@@ -75,6 +76,9 @@ class CandidateBatch:
         self.images = images                  # int32 [n, window+1, features]
         self.base_labels = base_labels
         self.type_labels = type_labels
+        # the native encoder's thread CPU seconds by section (None: not
+        # encoded natively)
+        self.sections = sections
 
     def __len__(self) -> int:
         return len(self.positions)

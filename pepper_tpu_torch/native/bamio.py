@@ -162,18 +162,6 @@ def available() -> bool:
     return _lib is not None
 
 
-def encode_prof() -> Optional[dict]:
-    """Drain the native encoder's cumulative section timers (seconds).
-    Returns {fetch, walk, site, windows, calls} or None without the lib."""
-    _load()
-    if _lib is None:
-        return None
-    buf = (ctypes.c_double * 5)()
-    _lib.encode_prof_get(buf)
-    return dict(fetch=buf[0], walk=buf[1], site=buf[2], windows=buf[3],
-                calls=int(buf[4]))
-
-
 def polish_prof() -> Optional[dict]:
     """Drain the native polish encoder's cumulative section timers
     (seconds). Returns {fetch, realign, pileup, calls} or None."""

@@ -1,10 +1,13 @@
 """ctypes wrapper for the fused native region encoder (src/region_encode.cpp).
 
-Returns the same CandidateImage objects as the Python RegionalSummary path;
-tests/test_native_encode.py asserts bit-equality between the two backends.
+Returns the same candidates as the Python RegionalSummary path, as a
+CandidateBatch whose arrays are views of the encoder's own result block;
+tests/test_torch_native_encode.py asserts bit-equality between the two
+backends.
 """
 import ctypes
 import threading
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -16,20 +19,30 @@ from pepper_tpu_torch.options import AlignerOptions, ImageOptions
 
 
 class _EncodeResult(ctypes.Structure):
+    # every array lies in `block`, one allocation the arrays' views borrow
     _fields_ = [
         ("n", ctypes.c_int32),
-        ("positions", ctypes.POINTER(ctypes.c_int64)),
-        ("depths", ctypes.POINTER(ctypes.c_int32)),
-        ("type_labels", ctypes.POINTER(ctypes.c_int32)),
-        ("base_labels", ctypes.POINTER(ctypes.c_int32)),
-        ("cand_freqs", ctypes.POINTER(ctypes.c_int32)),
-        ("cand_offsets", ctypes.POINTER(ctypes.c_int32)),
-        ("cand_buf", ctypes.c_char_p),
-        ("images", ctypes.POINTER(ctypes.c_int8)),
+        ("positions", ctypes.c_void_p),
+        ("depths", ctypes.c_void_p),
+        ("type_labels", ctypes.c_void_p),
+        ("base_labels", ctypes.c_void_p),
+        ("cand_freqs", ctypes.c_void_p),
+        ("cand_buf", ctypes.c_void_p),   # candidates separated by '\n'
+        ("images", ctypes.c_void_p),
         ("cand_buf_len", ctypes.c_int64),
         ("window1", ctypes.c_int32),
         ("features", ctypes.c_int32),
+        ("seconds", ctypes.c_double * 4),
+        ("block", ctypes.c_void_p),
+        ("block_len", ctypes.c_int64),
     ]
+
+
+# the thread CPU seconds of encode_region's sections, in EncodeResult order:
+# the window's records decoded (BGZF inflate included), the event walk, the
+# image rows and thresholds (and train labels), the gates and windows
+SECTIONS = ("(encode_fetch)", "(encode_walk)", "(encode_site)",
+            "(encode_render)")
 
 
 _bound = False
@@ -148,26 +161,31 @@ def encode_region_native(
     if not res_ptr:
         raise OSError(f"native encode failed for {bam_path}")
     res = res_ptr.contents
-    try:
-        n = res.n
-        win1, feat = res.window1, res.features
-        if n == 0:
-            empty_i = np.zeros(0, np.int64)
-            empty = np.zeros(0, np.int32)
-            return CandidateBatch(contig, empty_i, empty, [], empty,
-                                  np.zeros((0, win1, feat), np.int8),
-                                  empty, empty)
-        positions = np.ctypeslib.as_array(res.positions, (n,)).copy()
-        depths = np.ctypeslib.as_array(res.depths, (n,)).copy()
-        type_labels = np.ctypeslib.as_array(res.type_labels, (n,)).copy()
-        base_labels = np.ctypeslib.as_array(res.base_labels, (n,)).copy()
-        cand_freqs = np.ctypeslib.as_array(res.cand_freqs, (n,)).copy()
-        cand_off = np.ctypeslib.as_array(res.cand_offsets, (n + 1,))
-        cand_buf = ctypes.string_at(res.cand_buf, res.cand_buf_len)
-        images = np.ctypeslib.as_array(res.images, (n, win1, feat)).copy()
-        offs = cand_off.tolist()
-        cands = [cand_buf[offs[i]:offs[i + 1]].decode() for i in range(n)]
-        return CandidateBatch(contig, positions, depths, cands, cand_freqs,
-                              images, base_labels, type_labels)
-    finally:
+    n, block = res.n, res.block
+    win1, feat = res.window1, res.features
+    # the 21x48 encoder keeps no section timers
+    sections = None if hp_mode else dict(zip(SECTIONS, res.seconds))
+    if n == 0:
         lib.encode_result_free(res_ptr)
+        empty_i = np.zeros(0, np.int64)
+        empty = np.zeros(0, np.int32)
+        return CandidateBatch(contig, empty_i, empty, [], empty,
+                              np.zeros((0, win1, feat), np.int8),
+                              empty, empty, sections)
+    # the arrays are views of the native block, freed with their last view
+    raw = (ctypes.c_char * res.block_len).from_address(block)
+    weakref.finalize(raw, lib.encode_result_free, res_ptr)
+
+    def view(addr, dtype, shape):
+        count = int(np.prod(shape))
+        return np.frombuffer(raw, dtype, count, addr - block).reshape(shape)
+
+    cands = ctypes.string_at(res.cand_buf, res.cand_buf_len).decode() \
+        .split("\n")
+    return CandidateBatch(
+        contig, view(res.positions, np.int64, (n,)),
+        view(res.depths, np.int32, (n,)), cands,
+        view(res.cand_freqs, np.int32, (n,)),
+        view(res.images, np.int8, (n, win1, feat)),
+        view(res.base_labels, np.int32, (n,)),
+        view(res.type_labels, np.int32, (n,)), sections)

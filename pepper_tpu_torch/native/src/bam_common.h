@@ -247,15 +247,9 @@ inline size_t parse_record_head(const std::vector<uint8_t>& raw,
   return off + 4ull * n_cigar;
 }
 
-// Decode seq/qual/aux (the expensive part) after the head.
-inline void parse_record_body(const std::vector<uint8_t>& raw, size_t off,
-                              BamRecord& rec) {
-  int32_t l_seq;
-  memcpy(&l_seq, raw.data() + 16, 4);
-  rec.seq.resize(l_seq);
-  const uint8_t* sb = raw.data() + off;
-  // nibble-pair LUT: one table lookup emits two decoded bases
-  static const auto SEQ2 = [] {
+// Nibble-pair LUT: one table lookup emits the two bases of a sequence byte.
+inline const uint16_t* seq_pair_lut() {
+  static const auto t = [] {
     std::vector<uint16_t> t(256);
     for (int b = 0; b < 256; b++) {
       char two[2] = {SEQ_NT16()[b >> 4], SEQ_NT16()[b & 0xF]};
@@ -263,6 +257,17 @@ inline void parse_record_body(const std::vector<uint8_t>& raw, size_t off,
     }
     return t;
   }();
+  return t.data();
+}
+
+// Decode seq/qual/aux (the expensive part) after the head.
+inline void parse_record_body(const std::vector<uint8_t>& raw, size_t off,
+                              BamRecord& rec) {
+  int32_t l_seq;
+  memcpy(&l_seq, raw.data() + 16, 4);
+  rec.seq.resize(l_seq);
+  const uint8_t* sb = raw.data() + off;
+  const uint16_t* SEQ2 = seq_pair_lut();
   {
     char* dst = rec.seq.data();
     const int pairs = l_seq / 2;
@@ -281,19 +286,20 @@ inline void parse_record(const std::vector<uint8_t>& raw, BamRecord& rec) {
   parse_record_body(raw, parse_record_head(raw, rec), rec);
 }
 
-// Iterate records in the chunk list; calls fn(rec) for records on want_ref
-// overlapping [start, stop) that pass flag/mapq filters. Mirrors
-// bam_reader.py _iter_region_records + get_reads filters.
+// Iterate the raw records (the bytes after the 4-byte block_size) in the
+// chunk list that lie on want_ref, start before `stop` and pass the
+// flag/mapq filters: fn(raw). Whether a record reaches `start` is the
+// caller's test. The filters of bam_reader.py _iter_region_records +
+// get_reads.
 template <typename Fn>
-void for_each_record(const char* bam_path, const uint64_t* chunks,
-                     int n_chunks, int32_t want_ref, int64_t start,
-                     int64_t stop, bool include_suppl, int min_mapq, Fn fn) {
+void for_each_raw_record(const char* bam_path, const uint64_t* chunks,
+                         int n_chunks, int32_t want_ref, int64_t stop,
+                         bool include_suppl, int min_mapq, Fn fn) {
   FILE* fh = fopen(bam_path, "rb");
   if (!fh) return;
   BGZFCursor cur;
   cur.fh = fh;
   std::vector<uint8_t> raw;
-  BamRecord rec;
   for (int c = 0; c < n_chunks; c++) {
     uint64_t vbeg = chunks[2 * c], vend = chunks[2 * c + 1];
     if (!cur.seek_virtual(vbeg)) continue;
@@ -317,15 +323,30 @@ void for_each_record(const char* bam_path, const uint64_t* chunks,
         continue;
       if (!include_suppl && (flag & FLAG_SUPPLEMENTARY)) continue;
       if (raw[9] < min_mapq) continue;
-      // head first: records ending before the window skip the (10x more
-      // expensive) sequence/quality decode entirely
-      size_t body_off = parse_record_head(raw, rec);
-      if (rec.pos + rec.ref_span <= start) continue;
-      parse_record_body(raw, body_off, rec);
-      fn(rec);
+      fn(raw);
     }
   }
   fclose(fh);
+}
+
+// Iterate records in the chunk list; calls fn(rec) for records on want_ref
+// overlapping [start, stop) that pass flag/mapq filters. Mirrors
+// bam_reader.py _iter_region_records + get_reads filters.
+template <typename Fn>
+void for_each_record(const char* bam_path, const uint64_t* chunks,
+                     int n_chunks, int32_t want_ref, int64_t start,
+                     int64_t stop, bool include_suppl, int min_mapq, Fn fn) {
+  BamRecord rec;
+  for_each_raw_record(
+      bam_path, chunks, n_chunks, want_ref, stop, include_suppl, min_mapq,
+      [&](const std::vector<uint8_t>& raw) {
+        // head first: records ending before the window skip the (10x more
+        // expensive) sequence/quality decode entirely
+        size_t body_off = parse_record_head(raw, rec);
+        if (rec.pos + rec.ref_span <= start) return;
+        parse_record_body(raw, body_off, rec);
+        fn(rec);
+      });
 }
 
 // Trimmed read view (indices into the record's own buffers after trim).

@@ -26,7 +26,7 @@ import sys
 import threading
 import time
 from datetime import datetime
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -212,7 +212,7 @@ class _MetaBuffer:
         self.contigs: List[str] = []
         self.positions: List[np.ndarray] = []
         self.depths: List[np.ndarray] = []
-        self.candidates: List[List[str]] = []
+        self.candidates: List[Tuple[str, ...]] = []
         self.freqs: List[np.ndarray] = []
         self.images: List[np.ndarray] = []
         self.runs: List[List[int]] = []   # FIFO of [interval_idx, n_rows]
@@ -286,19 +286,25 @@ class _MetaBuffer:
 
 
 def _batch_fields(result):
-    """(contig, positions, depths, per-row candidate lists, freqs, images8)
-    from either a CandidateBatch or a list of CandidateImage."""
+    """(contig, positions, depths, per-row candidate tuples, freqs,
+    images8) from either a CandidateBatch or a list of CandidateImage."""
     from pepper_tpu_torch.encode.region_encoder import CandidateBatch
     images8 = stack_images(result).astype(np.int8, copy=False)
     if isinstance(result, CandidateBatch):
         freqs = np.asarray(result.candidate_frequency).reshape(-1)
+        # the rows of one allele share its one-allele tuple: a region's
+        # ~3,000 rows hold ~100 distinct alleles, and a new container a row
+        # kept the garbage collector busy, under the interpreter lock, for
+        # a few ms a region
+        rows = {c: (c,) for c in set(result.candidates)}
         return (result.contig, np.asarray(result.positions),
                 np.asarray(result.depths),
-                [[c] for c in result.candidates], freqs, images8)
+                list(map(rows.__getitem__, result.candidates)), freqs,
+                images8)
     return (result[0].contig,
             np.array([c.position for c in result], np.int64),
             np.array([c.depth for c in result], np.int32),
-            [list(c.candidates) for c in result],
+            [tuple(c.candidates) for c in result],
             np.array([int(np.atleast_1d(c.candidate_frequency)[0])
                       for c in result], np.int32),
             images8)
@@ -399,6 +405,10 @@ def stream_inference(config: PipelineConfig, intervals,
                     with stats.span("encode", cpu=True):
                         cands = create_region_summary(config, bam, fasta,
                                                       chr_name, start, end)
+                    # the native encoder's sections, nested in `encode`
+                    for key, seconds in (getattr(cands, "sections", None)
+                                         or {}).items():
+                        stats.add(key, seconds)
                     with stats.span("batch_fields", cpu=True):
                         fields = _batch_fields(cands) if cands else None
                     # empty intervals are reported too: the ordered

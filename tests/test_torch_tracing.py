@@ -16,11 +16,12 @@ import torch
 
 from pepper_tpu_torch.models.checkpoint import save_checkpoint
 from pepper_tpu_torch.models.variant_model import numpy_variant_params
+from pepper_tpu_torch.native import encoder as native_encoder
 from pepper_tpu_torch.options import PipelineConfig
 from pepper_tpu_torch.pipelines import make_images
 from pepper_tpu_torch.pipelines.call_variant import call_variant
 from pepper_tpu_torch.presets import set_parameters
-from pepper_tpu_torch.utils import streamstats
+from pepper_tpu_torch.utils import scale_rehearsal, streamstats
 from pepper_tpu_torch.utils.synth import (plant_variants, random_genome,
                                           simulate_reads, write_dataset)
 
@@ -61,6 +62,25 @@ def _job(ds, name, threads=4):
     t0 = time.perf_counter()
     call_variant(config)
     return time.perf_counter() - t0, streamstats.CURRENT
+
+
+def test_encode_sections_nest_in_encode(dataset, capsys):
+    """The native encoder's four sections are nested keys: on each encode
+    thread's CPU clock inside its `encode` span, out of `total()`, and in
+    the STREAM BREAKDOWN line as the scale rehearsal reads it."""
+    _, stats = _job(dataset, "sections", threads=2)
+    sections = [stats.seconds[key] for key in native_encoder.SECTIONS]
+    assert all(seconds >= 0 for seconds in sections)
+    assert 0 < sum(sections) <= stats.seconds["encode"]
+    assert all(key.startswith("(") for key in native_encoder.SECTIONS)
+    assert stats.total() == pytest.approx(sum(
+        v for k, v in stats.seconds.items()
+        if not k.startswith(("(", "main."))))
+    run = scale_rehearsal.Run(0, 0.0, 1.0, [], capsys.readouterr().err)
+    line = run.field(r"STREAM BREAKDOWN \(core-seconds\): (.+)")
+    parts = dict(part.rsplit(" ", 1) for part in line.split(" | "))
+    assert {"encode", *native_encoder.SECTIONS} <= set(parts)
+    assert all(float(v.rstrip("s")) >= 0 for v in parts.values())
 
 
 def test_states_tile_the_job(dataset):
