@@ -61,6 +61,10 @@ KERNEL_CODES = {"generic": 0, "cluster_fma": 1, "cluster_mma": 2}
 kernel_launches = {name: 0 for name in KERNEL_CODES}
 BACKWARD_CODES = {"generic": 0, "cluster_fma": 1}
 bwd_kernel_launches = {name: 0 for name in BACKWARD_CODES}
+# forward graphs replayed (runtime/streaming.py::DeviceRunner): a replay
+# makes the K1 launches its capture recorded, and `launches` and
+# `kernel_launches` count them as the launcher counts its own
+graph_replays = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CLUSTER_HIDDEN = (64, 128, 256)
@@ -363,6 +367,32 @@ def bilstm_recurrence_packed(pack: PackedBiLSTM, xp_f: torch.Tensor,
     launches += 1
     kernel_launches[pack.name] += 1
     return out
+
+
+def launch_counts() -> Tuple[int, Dict[str, int]]:
+    """K1's counters as they stand: (launches, launches by kernel)."""
+    return launches, dict(kernel_launches)
+
+
+def captured_launches(before: Tuple[int, Dict[str, int]]) -> Dict[str, int]:
+    """The K1 launches made since `before` (a `launch_counts()`) by kernel,
+    taken back out of the counters: a graph's capture records launches
+    and runs none. `count_replay` counts them each time the graph runs."""
+    global launches
+    made = {name: kernel_launches[name] - before[1][name]
+            for name in kernel_launches}
+    launches = before[0]
+    kernel_launches.update(before[1])
+    return made
+
+
+def count_replay(made: Dict[str, int]) -> None:
+    """Count one replay of a graph that captured the K1 launches `made`."""
+    global launches, graph_replays
+    for name, k in made.items():
+        kernel_launches[name] += k
+        launches += k
+    graph_replays += 1
 
 
 def raw_projections(params: Dict[str, torch.Tensor], x: torch.Tensor):

@@ -71,16 +71,17 @@ class _ContigSpanCache:
     per candidate: candidates arrive batch-grouped and position-ordered, so
     a single span read serves every up/downstream slice in the batch.
 
-    On load the span also precomputes a prefix-sum of "position sits in a
-    homopolymer run of length >= REPEAT_LENGTH_THRESHOLD" so the per-site
-    repeat gate (CandidateFinder.py:393-416) is a vectorized two-gather
-    instead of a per-candidate 20-char Python scan. Equivalence: the
-    reference computes run lengths on the +/-10bp substring and checks
-    max over window [pos-5, pos+4); every run of length >= 5 that touches
-    the check window keeps a >= 5 segment inside the +/-10 window (the
-    window extends >= 5 past the check region on both sides), and windowed
-    runs never exceed full runs, so the >= 5 gate is identical computed on
-    the whole span."""
+    On load the span also finds where 5 equal bases start in a row, so the
+    per-site repeat gate (CandidateFinder.py:393-416), "a position of the
+    window sits in a homopolymer run of length >= REPEAT_LENGTH_THRESHOLD",
+    is one binary search per candidate instead of a 20-char Python scan: a
+    position lies in such a run exactly when one of those 5-base windows
+    covers it. Equivalence: the reference computes run lengths on the
+    +/-10bp substring and checks max over window [pos-5, pos+4); every run
+    of length >= 5 that touches the check window keeps a >= 5 segment
+    inside the +/-10 window (the window extends >= 5 past the check region
+    on both sides), and windowed runs never exceed full runs, so the >= 5
+    gate is identical computed on the whole span."""
 
     def __init__(self, fasta: FastaReader):
         self._fasta = fasta
@@ -88,7 +89,7 @@ class _ContigSpanCache:
         self._lo = 0
         self._seq = ""
         self._arr = np.zeros(0, np.uint8)
-        self._ge5cum = np.zeros(1, np.int64)
+        self._run5 = np.zeros(0, np.intp)
 
     _AHEAD = 1 << 16   # over-fetch on miss: positions ascend within regions
 
@@ -102,15 +103,9 @@ class _ContigSpanCache:
             contig, lo, max(hi, lo + self._AHEAD)).upper()
         arr = np.frombuffer(self._seq.encode(), np.uint8)
         self._arr = arr
-        if len(arr):
-            starts = np.flatnonzero(
-                np.concatenate(([True], arr[1:] != arr[:-1])))
-            lens = np.diff(np.append(starts, len(arr)))
-            ge5 = np.repeat(lens >= 5, lens)
-            self._ge5cum = np.concatenate(
-                ([0], np.cumsum(ge5, dtype=np.int64)))
-        else:
-            self._ge5cum = np.zeros(1, np.int64)
+        # the offsets s where arr[s:s + 5] is one base five times
+        eq = arr[1:] == arr[:-1]
+        self._run5 = np.flatnonzero(eq[:-3] & eq[1:-2] & eq[2:-1] & eq[3:])
 
     def slice(self, lo: int, hi: int) -> str:
         """[lo, hi) clamped to the loaded span (contig-end truncation has
@@ -127,7 +122,10 @@ class _ContigSpanCache:
             if n else np.zeros(len(off), np.uint8)
         lo = np.clip(off - 5, 0, n)
         hi = np.clip(off + 4, 0, n)
-        in_repeat = (self._ge5cum[hi] - self._ge5cum[lo]) > 0
+        # a run window [s, s + 5) meets [lo, hi): s in [lo - 4, hi - 1]
+        first = np.searchsorted(self._run5, lo - 4)
+        run5 = np.append(self._run5, n)
+        in_repeat = run5[first] < hi
         return refb, in_repeat
 
 
@@ -181,6 +179,28 @@ class ColumnarDv:
 
 
 _ACGT_BYTES = frozenset(b"ACGT")
+# the one-letter string of each byte value (reference bases by code)
+_BYTE_CHARS = np.array([chr(b) for b in range(256)], dtype=object)
+
+
+def _allele_table(cand_lists) -> Tuple[np.ndarray, list]:
+    """(codes, table): the batch's distinct candidate rows as tuples, in
+    first-seen order, and each row's index into them, from one dict pass.
+    The streamed rows of one allele share one tuple (runtime/streaming.py::
+    _batch_fields): a region's ~3,000 rows hold ~100 distinct alleles.
+    Rows read back as lists (the resume journal, the prediction HDF5) are
+    keyed by their value."""
+    try:
+        index = dict.fromkeys(cand_lists)
+    except TypeError:
+        cand_lists = list(map(tuple, cand_lists))
+        index = dict.fromkeys(cand_lists)
+    table = list(index)
+    index.update(zip(table, range(len(table))))
+    codes = np.fromiter(map(index.__getitem__, cand_lists), np.intp,
+                        len(cand_lists))
+    return codes, table
+
 
 # test hook: force the scalar gate loop even for single-allele batches so
 # the vectorized fast path can be differential-tested against it
@@ -217,26 +237,20 @@ def batch_candidates(config: PipelineConfig, span: _ContigSpanCache,
     in_repeat_arr = np.zeros(n, bool)
     contig_runs = []
     i = 0
+    if isinstance(contigs, list) and contigs.count(contigs[0]) == n:
+        contig_runs.append((0, n, contigs[0]))   # one contig: one C pass
+        i = n
     while i < n:
         j = i + 1
         while j < n and contigs[j] == contigs[i]:
             j += 1
-        pos_grp = positions[i:j]
-        span.load(contigs[i], int(pos_grp.min()) - 10,
-                  int(pos_grp.max()) + 10)
-        ref_bytes[i:j], in_repeat_arr[i:j] = span.annotate(pos_grp)
         contig_runs.append((i, j, contigs[i]))
         i = j
+    for i, j, contig in contig_runs:
+        pos_grp = positions[i:j]
+        span.load(contig, int(pos_grp.min()) - 10, int(pos_grp.max()) + 10)
+        ref_bytes[i:j], in_repeat_arr[i:j] = span.annotate(pos_grp)
     valid_np = np.isin(ref_bytes, np.frombuffer(b"ACGT", np.uint8))
-    ref_chars = ref_bytes.tobytes().decode("latin-1")
-
-    def _lists():
-        # per-row python views, built only for the tuple-building paths
-        # (the columnar fast lane never touches them)
-        return (pg_arr.tolist(), values_arr.tolist(), nap_arr.tolist(),
-                preds.tolist(), positions.tolist(),
-                np.asarray(depths).tolist(), valid_np.tolist(),
-                in_repeat_arr.tolist())
 
     snp_p, snp_p_lc = config.snp_p_value, config.snp_p_value_in_lc
     ins_p, ins_p_lc = config.insert_p_value, config.insert_p_value_in_lc
@@ -244,19 +258,23 @@ def batch_candidates(config: PipelineConfig, span: _ContigSpanCache,
     snp_freq, indel_freq = (config.report_snp_above_freq,
                             config.report_indel_above_freq)
 
-    if not _FORCE_LOOP and all(len(c) == 1 for c in cand_lists):
+    codes, table = _allele_table(cand_lists)
+    if not _FORCE_LOOP and all(len(c) == 1 for c in table):
         # one allele per row — the shape the encoder always emits
         # (region_encoder.py:73,391): every gate is pure threshold algebra,
         # so the decisions vectorize and Python only materializes the
-        # tuples for rows that pass. Bit-identical to the loop below
+        # tuples for rows that pass. What an allele decides (its type, its
+        # body, whether the body is valid) is computed once per distinct
+        # allele and indexed per row. Bit-identical to the loop below
         # (differential-tested vs the reference's small_chunk_stitch).
-        first = [c[0] for c in cand_lists]
-        atype = np.frombuffer(
-            "".join(a[0] for a in first).encode("latin-1"), np.uint8) \
-            - ord("0")
-        bodies = [a[1:] for a in first]
-        valid_allele = np.fromiter((_valid_allele(b) for b in bodies),
-                                   bool, n)
+        alleles = [c[0] for c in table]
+        atype = (np.frombuffer("".join(a[0] for a in alleles)
+                               .encode("latin-1"), np.uint8)
+                 - ord("0"))[codes]
+        bodies = np.empty(len(alleles), object)
+        bodies[:] = [a[1:] for a in alleles]
+        valid_allele = np.fromiter(map(_valid_allele, bodies), bool,
+                                   len(alleles))[codes]
         # freq_lists may arrive as a flat array (the streamed flush path
         # avoids materializing 1-element python lists per row)
         freqs = (np.asarray(freq_lists, np.int64)
@@ -282,50 +300,63 @@ def batch_candidates(config: PipelineConfig, span: _ContigSpanCache,
         dv_mask = base_ok & (p_pass | freq_override)
         del_swap = (atype == 3) & p_pass
 
+        # the passing rows' strings: the allele's body and the reference
+        # base, which a deletion that passes its p-value gate swaps
+        sel = np.flatnonzero(dv_mask)
+        body_sel = bodies[codes[sel]]
+        refc_sel = _BYTE_CHARS[ref_bytes[sel]]
+        swap = del_swap[sel]
+        refs = np.where(swap, body_sel, refc_sel).tolist()
+        alts = np.where(swap, refc_sel, body_sel).tolist()
         if columnar_out is not None:
             # zero-tuple lane: arrays all the way to the native VCF sink
             # (margin tuples skipped — the ordered emitter discards them)
-            sel_all = np.flatnonzero(dv_mask)
-            dsl = del_swap.tolist()
             depths_i = np.asarray(depths, np.int32)
             for i0, j0, ctg in contig_runs:
-                m = sel_all[(sel_all >= i0) & (sel_all < j0)]
-                if not len(m):
+                lo, hi = np.searchsorted(sel, (i0, j0)).tolist()
+                if lo == hi:
                     continue
-                ml = m.tolist()
-                refs = [bodies[k] if dsl[k] else ref_chars[k] for k in ml]
-                alts = [ref_chars[k] if dsl[k] else bodies[k] for k in ml]
+                m = sel[lo:hi]
                 columnar_out.append(ColumnarDv(
-                    ctg, positions[m], refs, alts,
+                    ctg, positions[m], refs[lo:hi], alts[lo:hi],
                     pg_arr[m].astype(np.uint8), depths_i[m],
                     freqs[m].astype(np.int32), values_arr[m],
                     nap_arr[m], in_repeat_arr[m], preds[m]))
             return
 
-        (all_genotypes, all_values, _all_non_alt, all_preds,
-         all_positions, all_depths, _valid, in_repeats) = _lists()
         gt_tab = ([0, 0], [0, 1], [1, 1])
-        for i in np.flatnonzero(margin_mask).tolist():
+        depths_np = np.asarray(depths)
+
+        def rows(m):
+            # the python values of rows m, for the tuples
+            return zip(m.tolist(), positions[m].tolist(),
+                       depths_np[m].tolist(), pg[m].tolist(),
+                       freqs[m].tolist(), values_arr[m].tolist(),
+                       preds[m].tolist())
+
+        m = np.flatnonzero(margin_mask)
+        for (i, pos, depth, g, freq, value, pred), ref_c, body in zip(
+                rows(m), _BYTE_CHARS[ref_bytes[m]].tolist(),
+                bodies[codes[m]].tolist()):
             margin_list.append((
-                contigs[i], all_positions[i], all_positions[i] + 1,
-                ref_chars[i], [bodies[i]], list(gt_tab[pg[i]]),
-                all_depths[i], [int(freqs[i])], all_values[i],
-                all_preds[i]))
-        naps = nap.tolist()
-        for i in np.flatnonzero(dv_mask).tolist():
-            if del_swap[i]:
-                ref_out, alts = bodies[i], [ref_chars[i]]
-            else:
-                ref_out, alts = ref_chars[i], [bodies[i]]
+                contigs[i], pos, pos + 1, ref_c, [body], list(gt_tab[g]),
+                depth, [freq], value, pred))
+        for (i, pos, depth, g, freq, value, pred), ref_out, alt, nap_i, \
+                rep_i in zip(rows(sel), refs, alts, nap[sel].tolist(),
+                             rep[sel].tolist()):
             deepvariant_list.append((
-                contigs[i], all_positions[i],
-                all_positions[i] + len(ref_out), ref_out, alts,
-                list(gt_tab[pg[i]]), all_depths[i], [int(freqs[i])],
-                all_values[i], all_preds[i], [naps[i]], in_repeats[i]))
+                contigs[i], pos, pos + len(ref_out), ref_out, [alt],
+                list(gt_tab[g]), depth, [freq], value, pred, [nap_i],
+                rep_i))
         return
 
+    # per-row python views for the scalar loop
     (all_genotypes, all_values, all_non_alt, all_preds, all_positions,
-     all_depths, valid, in_repeats) = _lists()
+     all_depths, valid, in_repeats) = (
+        pg_arr.tolist(), values_arr.tolist(), nap_arr.tolist(),
+        preds.tolist(), positions.tolist(), np.asarray(depths).tolist(),
+        valid_np.tolist(), in_repeat_arr.tolist())
+    ref_chars = ref_bytes.tobytes().decode("latin-1")
     if isinstance(freq_lists, np.ndarray):   # flat array from the stream
         freq_lists = [[int(f)] for f in freq_lists.tolist()]
     for i in range(n):

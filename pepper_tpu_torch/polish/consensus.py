@@ -27,7 +27,8 @@ from pepper_tpu_torch.options import PolishImageOptions, PolishTrainOptions
 from pepper_tpu_torch.polish.datastore import (PolishImageStore,
                                                PolishPredictionStore,
                                                polish_image_files)
-from pepper_tpu_torch.runtime.streaming import _PendingBatch, resolve_device
+from pepper_tpu_torch.runtime.streaming import (_PendingBatch, _Slot,
+                                                resolve_device)
 
 
 def _log(msg: str) -> None:
@@ -150,7 +151,7 @@ class ConsensusRunner:
             host_out.copy_(labels, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self._stream)
-        return _PendingBatch(host_out, [done], host_in)
+        return _PendingBatch(_Slot(host_in, host_out), [done])
 
 
 def pad_consensus_batch(images: list, batch_size: int) -> np.ndarray:

@@ -25,8 +25,11 @@ import queue
 import sys
 import threading
 import time
+import weakref
+from collections import deque
 from datetime import datetime
-from typing import List, Optional, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -56,32 +59,102 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class _PendingBatch:
-    """One in-flight batch: its own pinned output buffer, filled by
-    asynchronous D2H copies that the events in `done` mark complete (one
-    per replica that wrote a slice of it). np.asarray() waits for them (on
-    the flusher thread), adds the replicas' device spans (each from its
-    timing event in `started`, recorded before the H2D copy, to its event
-    in `done`) to the stream's "(device)" seconds, and returns the
-    probabilities."""
+# the flusher's queue of submitted batches, and the runner's pinned slots:
+# one for each batch that queue holds, the one the flusher is reading and
+# the one the dispatching thread has just submitted
+FLUSH_DEPTH = 6
+RING_SLOTS = FLUSH_DEPTH + 2
 
-    def __init__(self, host_out: torch.Tensor, done, host_in: torch.Tensor,
-                 started=()):
-        self._host_out = host_out
+
+class _Slot:
+    """One pinned input batch (the runner's int8 images) and its output
+    (their f32 probabilities), as tensors (`host_in`, `host_out`) and their
+    numpy views (`images`, `probs`); `events` mark when the card last
+    finished with them."""
+
+    def __init__(self, host_in: torch.Tensor, host_out: torch.Tensor):
+        self.host_in, self.host_out = host_in, host_out
+        self.images, self.probs = host_in.numpy(), host_out.numpy()
+        self.events: Sequence = ()
+
+
+class _PinnedRing:
+    """Pinned slots of one input shape, allocated once and handed out batch
+    after batch. A slot comes back (`release`) when its batch's output has
+    been copied out, or when the batch is dropped unread; it is handed out
+    again (`acquire`, oldest release first) only once the events of its last
+    batch have completed, so the card never reads an input being rewritten
+    nor writes an output being read. A caller that holds every slot gets a
+    new one: the ring never blocks a thread that holds its own batches."""
+
+    def __init__(self, make_slot: Callable[[], _Slot], slots: int):
+        self._make = make_slot
+        self._free = deque(make_slot() for _ in range(slots))
+        self._lock = threading.Lock()
+
+    def acquire(self) -> _Slot:
+        with self._lock:
+            slot = self._free.popleft() if self._free else None
+        if slot is None:
+            return self._make()
+        for event in slot.events:
+            event.synchronize()
+        slot.events = ()
+        return slot
+
+    def release(self, slot: _Slot, events: Sequence) -> None:
+        slot.events = events
+        with self._lock:
+            self._free.append(slot)
+
+
+class _PendingBatch:
+    """One in-flight batch in a pinned slot, whose output asynchronous D2H
+    copies fill; the events in `done` mark them complete (one per replica
+    that wrote a slice of it). np.asarray() waits for them (on the flusher
+    thread), adds the replicas' device spans (each from its timing event in
+    `started`, recorded before the H2D copy, to its event in `done`) to the
+    stream's "(device)" seconds, copies the output out and gives the slot
+    back to its `ring`, if it came from one. A batch dropped unread gives
+    its slot back too."""
+
+    def __init__(self, slot: _Slot, done, started=(),
+                 ring: Optional[_PinnedRing] = None):
+        self._ring, self._slot = ring, slot
         self._done = done
-        self._host_in = host_in   # pinned input: held until the batch is done
         self._started = started
+        self._probs = None
+        self._dropped = None if ring is None else \
+            weakref.finalize(self, ring.release, slot, done)
 
     def __array__(self, dtype=None, copy=None):
-        for event in self._done:
-            event.synchronize()
-        if self._started:
-            streamstats.CURRENT.add("(device)", sum(
-                a.elapsed_time(b) for a, b in zip(self._started, self._done))
-                / 1e3)
-            self._started = None
-        out = self._host_out.numpy()
-        return out if dtype is None else out.astype(dtype)
+        if self._probs is None:
+            for event in self._done:
+                event.synchronize()
+            if self._started:
+                streamstats.CURRENT.add("(device)", sum(
+                    a.elapsed_time(b)
+                    for a, b in zip(self._started, self._done)) / 1e3)
+            self._probs = self._slot.probs.copy()
+            if self._ring is not None:
+                # its events are complete: the ring need not wait on them
+                self._dropped.detach()
+                self._ring.release(self._slot, ())
+        return self._probs if dtype is None else self._probs.astype(dtype)
+
+
+class _ForwardGraph(NamedTuple):
+    """One replica's classifier forward at one input shape, captured as a
+    CUDA graph: the int8 -> working dtype cast, `variant_forward` (K1
+    twice, the linear layers) and the cast of the probabilities to f32,
+    between a fixed device input and output. `made` holds the K1 launches
+    each replay makes; `packs` keeps the packed layers it reads alive,
+    whatever the pack cache evicts."""
+    graph: "torch.cuda.CUDAGraph"
+    images: torch.Tensor
+    probs: torch.Tensor
+    made: Dict[str, int]
+    packs: list
 
 
 class DeviceRunner:
@@ -94,11 +167,13 @@ class DeviceRunner:
     (a mesh; repeats allowed). Each mesh entry holds its own parameter
     replica and, on a card, its own stream and event: a batch is split into
     one contiguous block per entry, and each block crosses to its card as
-    int8 from pinned memory, is cast there, runs `variant_forward` (kernel
-    K1 twice) and comes back by an asynchronous copy into its slice of one
-    pinned output buffer, so `submit` never waits for a device. bf16 on
-    CUDA, f32 on the CPU or with PEPPER_TPU_PRECISION=f32. Shared by the
-    staged (runtime/inference.py) and streaming paths."""
+    int8 from a slot of the runner's pinned ring, is cast there, runs
+    `variant_forward` (kernel K1 twice) and comes back by an asynchronous
+    copy into the slot's output, so `submit` never waits for a device. On
+    a card the forward is one CUDA graph per replica and input shape,
+    captured after the shape's first batch. bf16 on CUDA, f32 on the CPU or
+    with PEPPER_TPU_PRECISION=f32. Shared by the staged
+    (runtime/inference.py) and streaming paths."""
 
     def __init__(self, params, batch_size: int = 2048, device="cuda"):
         from pepper_tpu_torch.models.checkpoint import params_from_jax
@@ -121,6 +196,8 @@ class DeviceRunner:
         # (ops/pack_cache.py): room for all of them between batches
         pack_cache.reserve(self, 2 * len(self.mesh))
         self._streams = replica_streams(self.mesh)
+        self._rings: Dict[tuple, _PinnedRing] = {}
+        self._graphs: Dict[tuple, _ForwardGraph] = {}
 
     def _forward(self, r: int, images8: torch.Tensor) -> torch.Tensor:
         from pepper_tpu_torch.models.variant_model import variant_forward
@@ -139,38 +216,106 @@ class DeviceRunner:
         return map_replicas(self.mesh, self._streams, self._forward,
                             images8)
 
-    def submit(self, images8: np.ndarray):
-        """Enqueue one batch; returns an array-like (np.asarray) whose first
-        len(images8) rows are the probabilities."""
-        n = len(images8)
-        shape = (self.batch,) + images8.shape[1:]
-        if self.device.type == "cpu":
-            padded = np.zeros(shape, np.int8)
-            padded[:n] = images8
-            return self.forward(torch.from_numpy(padded)).numpy()
-        host_in = torch.empty(shape, dtype=torch.int8, pin_memory=True)
-        staged = host_in.numpy()
-        staged[:n] = images8
-        staged[n:] = 0
-        host_out = torch.empty((self.batch, 3), dtype=torch.float32,
-                               pin_memory=True)
-        from pepper_tpu_torch.parallel.mesh import run_replicas
+    def _ring(self, window: tuple) -> _PinnedRing:
+        """The pinned slots for images of `window` ([T, F])."""
+        ring = self._rings.get(window)
+        if ring is None:
+            def make_slot():
+                return _Slot(torch.empty((self.batch,) + window,
+                                         dtype=torch.int8, pin_memory=True),
+                             torch.empty((self.batch, 3),
+                                         dtype=torch.float32,
+                                         pin_memory=True))
+            ring = self._rings[window] = _PinnedRing(make_slot, RING_SLOTS)
+        return ring
+
+    def _capture(self, r: int, window: tuple) -> _ForwardGraph:
+        """Capture replica r's forward at `window` on its stream. Runs after
+        an eager batch of that shape, so K1's packs are built and cached
+        (ops/pack_cache.py) and the libraries loaded: the graph reads the
+        packs, it does not build them."""
+        from pepper_tpu_torch.ops import fused_lstm as fl
+        dev, stream = self.mesh[r], self._streams[r]
         rows = self.batch // len(self.mesh)
+        before = fl.launch_counts()
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            images = torch.zeros((rows,) + window, dtype=torch.int8,
+                                 device=dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                probs = self._forward(r, images)
+        made = fl.captured_launches(before)
+        rep = self._replicas[r]
+        packs = [fl.packed_layer(rep[name], fl.select_kernel(
+            rows, window[0], rep[name]["weight_hh_l0"].shape[1],
+            self.dtype)) for name in ("encoder", "decoder")]
+        return _ForwardGraph(graph, images, probs, made, packs)
 
-        def run(r: int, block: torch.Tensor) -> torch.cuda.Event:
-            host_out[r * rows:(r + 1) * rows].copy_(self._forward(r, block),
-                                                    non_blocking=True)
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
+    def submit(self, images8):
+        """Enqueue one batch of int8 images, an array [n, T, F] or a list of
+        such blocks; returns an array-like (np.asarray) whose first n rows
+        are the probabilities.
 
-        started = []
-        for stream in self._streams:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record(stream)
-            started.append(event)
-        done = run_replicas(self.mesh, self._streams, run, host_in)
-        return _PendingBatch(host_out, done, host_in, started)
+        On a card the rows are copied once, into a slot of the runner's
+        pinned ring, the padding after them zeroed. Each replica then
+        copies its block to its card, runs its forward and copies the
+        probabilities back into the slot, on its stream: the first batch of
+        a shape eagerly, after which the replica's forward at that shape is
+        captured as a CUDA graph; every later batch replays the graph."""
+        blocks = [images8] if isinstance(images8, np.ndarray) else images8
+        window = tuple(blocks[0].shape[1:])
+        stats = streamstats.CURRENT
+        if self.device.type == "cpu":
+            padded = np.zeros((self.batch,) + window, np.int8)
+            _stage(padded, blocks)
+            return self.forward(torch.from_numpy(padded)).numpy()
+        from pepper_tpu_torch.ops import fused_lstm as fl
+        ring = self._ring(window)
+        with stats.span("(ring_wait)"):
+            slot = ring.acquire()
+        with stats.span("(submit_stage)", cpu=True):
+            _stage(slot.images, blocks)
+        rows = self.batch // len(self.mesh)
+        with stats.span("(submit_enqueue)"):
+            started = []
+            for stream in self._streams:
+                event = torch.cuda.Event(enable_timing=True)
+                event.record(stream)
+                started.append(event)
+            done, eager = [], []
+            for r, (dev, stream) in enumerate(zip(self.mesh,
+                                                  self._streams)):
+                block_in = slot.host_in[r * rows:(r + 1) * rows]
+                block_out = slot.host_out[r * rows:(r + 1) * rows]
+                graph = self._graphs.get((r, window))
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    if graph is None:
+                        eager.append(r)
+                        block_out.copy_(self._forward(
+                            r, block_in.to(dev, non_blocking=True)),
+                            non_blocking=True)
+                    else:
+                        graph.images.copy_(block_in, non_blocking=True)
+                        graph.graph.replay()
+                        block_out.copy_(graph.probs, non_blocking=True)
+                        fl.count_replay(graph.made)
+                    event = torch.cuda.Event(enable_timing=True)
+                    event.record(stream)
+                    done.append(event)
+        for r in eager:
+            self._graphs[(r, window)] = self._capture(r, window)
+        return _PendingBatch(slot, done, started, ring)
+
+
+def _stage(out: np.ndarray, blocks: Sequence[np.ndarray]) -> None:
+    """Copy the rows of `blocks` one after another into `out` and zero the
+    rows after them, so a padded batch reads defined input."""
+    n = 0
+    for block in blocks:
+        out[n:n + len(block)] = block
+        n += len(block)
+    out[n:] = 0
 
 
 _runner_cache: dict = {}
@@ -230,8 +375,10 @@ class _MetaBuffer:
         self.rows += len(positions)
 
     def take(self, n: int):
-        """Split off the first n rows as flat arrays (+ their interval-run
-        accounting, for the ordered stage-3 watermark).
+        """Split off the first n rows as flat arrays, the images as the list
+        of their chunks (`DeviceRunner.submit` copies each chunk once, into
+        its pinned slot), plus their interval-run accounting, for the
+        ordered stage-3 watermark.
 
         O(n) per take, not O(buffer): whole chunks are moved into the batch
         and only the boundary chunk is split; the remainder keeps its chunk
@@ -271,7 +418,7 @@ class _MetaBuffer:
                 rest_runs.append([idx, k])
         out = (self.contigs[:n], np.concatenate(pos_out),
                np.concatenate(dep_out), self.candidates[:n],
-               np.concatenate(frq_out), np.concatenate(img_out), batch_runs)
+               np.concatenate(frq_out), img_out, batch_runs)
         rest = _MetaBuffer()
         if n < self.rows:
             rest.contigs = self.contigs[n:]
@@ -422,6 +569,8 @@ def stream_inference(config: PipelineConfig, intervals,
 
     threads = [threading.Thread(target=producer, daemon=True)
                for _ in range(n_threads)]
+    from pepper_tpu_torch.ops import fused_lstm
+    counts0 = (fused_lstm.launches, fused_lstm.graph_replays)
     t0 = time.time()
     for t in threads:
         t.start()
@@ -476,7 +625,7 @@ def stream_inference(config: PipelineConfig, intervals,
     # can stall the whole encode pipeline), yet the gates + ordered VCF
     # emission keep pace with the stream instead of piling into the tail.
     # The bounded queue caps in-flight batches (host+device memory).
-    flush_q: "queue.Queue" = queue.Queue(maxsize=6)
+    flush_q: "queue.Queue" = queue.Queue(maxsize=FLUSH_DEPTH)
 
     def flusher():
         try:
@@ -604,6 +753,8 @@ def stream_inference(config: PipelineConfig, intervals,
     if image_store is not None:
         image_store.close()
     _log(f"STREAMED ENCODE+INFERENCE: {total} CANDIDATES "
-         f"[{time.time() - t0:.1f}s]")
+         f"[{time.time() - t0:.1f}s]; K1 LAUNCHES "
+         f"{fused_lstm.launches - counts0[0]}, GRAPH REPLAYS "
+         f"{fused_lstm.graph_replays - counts0[1]}")
     _log("STREAM BREAKDOWN (core-seconds): " + stats.summary())
     return total

@@ -7,6 +7,7 @@ the JAX package, so it runs on a machine with the card alone:
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -719,6 +720,88 @@ def test_two_replica_runner_on_one_card_matches_one_replica(cuda_device,
             fl.bilstm_recurrence_packed(pack, *(p[:1024] for p in xp)),
             fl.bilstm_recurrence_packed(pack, *(p[1024:] for p in xp))])
     assert torch.equal(whole, halves)
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+@pytest.mark.parametrize("features,window", [(26, 33), (48, 21)])
+def test_runner_graph_replays_the_eager_forward_bit_for_bit(
+        cuda_device, monkeypatch, precision, features, window):
+    """A runner's batches at 16384 rows: the first of a shape runs eagerly
+    and its forward is then captured as a CUDA graph, every later one
+    replays it. The replay gives the eager forward's bits (33x26 and the HP
+    pass's 21x48, bf16 and f32), counts its two K1 launches and one replay,
+    and a short batch in a reused slot reads zeros after its rows."""
+    import numpy as np
+
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    monkeypatch.setenv("PEPPER_TPU_PRECISION", precision)
+    params = init_variant_params(torch.Generator().manual_seed(12),
+                                 image_features=features, window=window)
+    tree = {grp: {k: v.numpy() for k, v in leaves.items()}
+            for grp, leaves in params.items()}
+    runner = DeviceRunner(tree, 16384, device="cuda")
+    assert runner.batch == 16384
+    rng = np.random.default_rng(13)
+    images = rng.integers(-125, 126, (16384, window, features))
+    images[rng.random(images.shape) < 0.7] = 0
+    images = images.astype(np.int8)
+    kernel = fl.select_kernel(16384, window, 256, runner.dtype)
+    launches, by_kernel = fl.launch_counts()
+    replays = fl.graph_replays
+    first = np.asarray(runner.submit(images))        # eager, then captured
+    assert (fl.launches, fl.graph_replays) == (launches + 2, replays)
+    second = np.asarray(runner.submit(images))       # the graph
+    assert (fl.launches, fl.graph_replays) == (launches + 4, replays + 1)
+    assert fl.kernel_launches[kernel] == by_kernel[kernel] + 4
+    with torch.inference_mode():
+        eager = runner.forward(torch.from_numpy(images).to(
+            cuda_device)).cpu().numpy()
+    assert (_bits(first) == _bits(eager)).all()
+    assert (_bits(second) == _bits(eager)).all()
+    short = images[:5000]
+    got = np.asarray(runner.submit([short[:3000], short[3000:]]))
+    assert fl.graph_replays == replays + 2
+    padded = np.zeros_like(images)
+    padded[:5000] = short
+    with torch.inference_mode():
+        want = runner.forward(torch.from_numpy(padded).to(
+            cuda_device)).cpu().numpy()
+    assert (_bits(got) == _bits(want)).all()
+
+
+@pytest.mark.cuda
+def test_two_replica_runner_graphs_replay_each_replicas_forward(
+        cuda_device, monkeypatch):
+    """A 2-entry mesh on one card: each replica captures its own graph on
+    its own stream after the first batch, and a replay gives the eager
+    batch's bits, with two K1 launches and one replay per replica."""
+    import numpy as np
+
+    from pepper_tpu_torch.models.variant_model import init_variant_params
+    from pepper_tpu_torch.runtime.streaming import DeviceRunner
+
+    monkeypatch.setenv("PEPPER_TPU_PRECISION", "bf16")
+    params = init_variant_params(torch.Generator().manual_seed(14))
+    tree = {grp: {k: v.numpy() for k, v in leaves.items()}
+            for grp, leaves in params.items()}
+    rng = np.random.default_rng(15)
+    images = rng.integers(-125, 126, (8000, 33, 26))
+    images[rng.random(images.shape) < 0.7] = 0
+    images = images.astype(np.int8)
+    two = DeviceRunner(tree, 8192, device=["cuda:0", "cuda:0"])
+    launches, replays = fl.launches, fl.graph_replays
+    first = np.asarray(two.submit(images))
+    assert (fl.launches, fl.graph_replays) == (launches + 4, replays)
+    second = np.asarray(two.submit(images))
+    assert (fl.launches, fl.graph_replays) == (launches + 8, replays + 2)
+    assert (_bits(first) == _bits(second)).all()
 
 
 @pytest.mark.cuda
